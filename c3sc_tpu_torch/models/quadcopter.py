@@ -1,0 +1,124 @@
+"""Quadcopter: 6D planar-quadrotor stochastic hover — port of
+``c3sc_tpu/models/quadcopter.py::make_quadcopter_problem``.
+
+State (x, z, th, vx, vz, om), controls (u1, u2) = rotor thrusts in [0, u_max]:
+
+    x'  = vx                     vx' = -(u1 + u2) sin(th) / m      + noise
+    z'  = vz                     vz' =  (u1 + u2) cos(th) / m - g  + noise
+    th' = om                     om' =  arm (u1 - u2) / inertia    + noise
+
+Quadratic stage cost to hover at the origin. Same factory kwargs as the
+JAX package; every callable broadcasts over leading axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from c3sc_tpu_torch.models.base import Boundary, ControlProblem, batch_shape
+
+
+def make_quadcopter_problem(
+    mass: float = 0.5,
+    inertia: float = 0.01,
+    arm: float = 0.17,
+    gconst: float = 9.81,
+    sigma_v: float = 0.25,
+    sigma_om: float = 0.25,
+    beta: float = 0.2,
+    u_max: float = 6.0,
+    pos_max: float = 2.0,
+    th_max: float = 1.0,
+    vel_max: float = 3.0,
+    om_max: float = 4.0,
+    w_pos: float = 2.0,
+    w_th: float = 1.0,
+    w_vel: float = 0.2,
+    w_om: float = 0.1,
+    w_u: float = 0.02,
+    exit_cost: float = 100.0,
+) -> ControlProblem:
+    hover = 0.5 * mass * gconst  # per-rotor hover thrust (cost reference)
+
+    def drift(x, u):
+        th, vx, vz, om = x[..., 2], x[..., 3], x[..., 4], x[..., 5]
+        thrust = u[..., 0] + u[..., 1]
+        cols = torch.broadcast_tensors(
+            vx, vz, om,
+            -thrust * torch.sin(th) / mass,
+            thrust * torch.cos(th) / mass - gconst,
+            arm * (u[..., 0] - u[..., 1]) / inertia,
+        )
+        return torch.stack(cols, dim=-1)
+
+    def diff(x, u):
+        L = torch.zeros((*batch_shape(x, u), 6, 3), dtype=x.dtype, device=x.device)
+        L[..., 3, 0] = sigma_v
+        L[..., 4, 1] = sigma_v
+        L[..., 5, 2] = sigma_om
+        return L
+
+    def stage_cost(x, u):
+        pos = x[..., 0] ** 2 + x[..., 1] ** 2
+        du = (u[..., 0] - hover) ** 2 + (u[..., 1] - hover) ** 2
+        return (
+            w_pos * pos
+            + w_th * x[..., 2] ** 2
+            + w_vel * (x[..., 3] ** 2 + x[..., 4] ** 2)
+            + w_om * x[..., 5] ** 2
+            + w_u * du
+        )
+
+    def boundary_cost(x):
+        return torch.full(x.shape[:-1], exit_cost, dtype=x.dtype, device=x.device)
+
+    # control-affine structure: f(x, u) = f0(x) + G(x) u
+    def drift_f0(x):
+        z = torch.zeros_like(x[..., 0])
+        return torch.stack([x[..., 3], x[..., 4], x[..., 5], z, z - gconst, z], dim=-1)
+
+    def drift_G(x):
+        s, c = torch.sin(x[..., 2]) / mass, torch.cos(x[..., 2]) / mass
+        k = torch.full_like(s, arm / inertia)
+        z = torch.zeros_like(s)
+        rows = [(z, z), (z, z), (z, z), (-s, -s), (c, c), (k, -k)]
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    def sigma2_x(x):
+        s2 = torch.tensor([0.0, 0.0, 0.0, sigma_v**2, sigma_v**2, sigma_om**2],
+                          dtype=x.dtype, device=x.device)
+        return s2.expand(x.shape)
+
+    def cost_q(x):
+        return (w_pos * (x[..., 0] ** 2 + x[..., 1] ** 2) + w_th * x[..., 2] ** 2
+                + w_vel * (x[..., 3] ** 2 + x[..., 4] ** 2) + w_om * x[..., 5] ** 2)
+
+    def cost_r(u):
+        return w_u * ((u[..., 0] - hover) ** 2 + (u[..., 1] - hover) ** 2)
+
+    return ControlProblem(
+        dx=6, du=2, dw=3,
+        lb=(-pos_max, -pos_max, -th_max, -vel_max, -vel_max, -om_max),
+        ub=(pos_max, pos_max, th_max, vel_max, vel_max, om_max),
+        boundary=(
+            Boundary.ABSORB, Boundary.ABSORB, Boundary.REFLECT,
+            Boundary.REFLECT, Boundary.REFLECT, Boundary.REFLECT,
+        ),
+        ulb=(0.0, 0.0), uub=(u_max, u_max),
+        drift=drift, diff=diff,
+        stage_cost=stage_cost, boundary_cost=boundary_cost,
+        drift_f0=drift_f0, drift_G=drift_G, sigma2_x=sigma2_x,
+        cost_q=cost_q, cost_r=cost_r,
+        beta=beta, name="quadcopter",
+        value_bounds=(0.0, max(exit_cost, _g_sup(
+            w_pos, w_th, w_vel, w_om, w_u, pos_max, th_max, vel_max, om_max,
+            u_max, hover) / max(beta, 1e-6))),
+    )
+
+
+def _g_sup(w_pos, w_th, w_vel, w_om, w_u, pos_max, th_max, vel_max, om_max,
+           u_max, hover):
+    return (
+        w_pos * 2 * pos_max**2 + w_th * th_max**2 + w_vel * 2 * vel_max**2
+        + w_om * om_max**2 + w_u * 2 * max(hover, u_max - hover) ** 2
+    )
