@@ -14,6 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import resolve_device
 from c3sc_tpu_torch.grids import Grid
 
 
@@ -26,6 +27,7 @@ def grid_from_numpy(lb: Sequence[float], ub: Sequence[float], shape: Sequence[in
 
 
 def value_from_npz(path: str, device=None) -> torch.Tensor:
-    """The dense value table ``v`` [*grid.shape] of an npz, as float32."""
+    """The dense value table ``v`` [*grid.shape] of an npz, as float32 on
+    ``device`` (None: the default CUDA device)."""
     with np.load(path) as z:
-        return torch.as_tensor(np.asarray(z["v"], np.float32), device=device)
+        return torch.as_tensor(np.asarray(z["v"], np.float32), device=resolve_device(device))

@@ -17,6 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import resolve_device
+
 
 def float_mod(x, y):
     """Floating remainder with the sign of ``y`` — ``fmod`` plus the same
@@ -148,14 +150,17 @@ class Grid:
 
     def node_states(self, device=None):
         """All node states [N, d] float32 in row-major (C) node order, built
-        on ``device`` from the per-dim node arrays (the values of
-        ``meshgrid()``)."""
+        on ``device`` (None: the default CUDA device) from the per-dim node
+        arrays (the values of ``meshgrid()``)."""
+        device = resolve_device(device)
         axes = [torch.as_tensor(self.nodes(k), dtype=torch.float32, device=device)
                 for k in range(self.ndim)]
         return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, self.ndim)
 
     def node_indices(self, device=None):
-        """All node multi-indices [N, d] int64 in row-major node order."""
+        """All node multi-indices [N, d] int64 in row-major node order, on
+        ``device`` (None: the default CUDA device)."""
+        device = resolve_device(device)
         axes = [torch.arange(n, device=device) for n in self.shape]
         return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, self.ndim)
 

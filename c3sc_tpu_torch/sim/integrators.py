@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import resolve_device
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 
@@ -38,6 +39,8 @@ def trajectory_save(path: str, traj: Trajectory) -> None:
 
 
 def trajectory_load(path: str, device=None) -> Trajectory:
+    """Read a record back onto ``device`` (None: the default CUDA device)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         return Trajectory(**{k: torch.as_tensor(z[k], device=device)
                              for k in Trajectory._fields})

@@ -5,7 +5,8 @@ A full-grid Markov-chain-approximation Bellman solve by *modified policy
 iteration*: each outer sweep does one argmin over the control candidates
 (improve) and ``eval_sweeps`` fixed-policy backups (evaluate). Both sweeps
 are kernel K1 (``ops/dense_backup.py``): on a CUDA device they launch the
-hand-written kernel, on the CPU they run its plain PyTorch version.
+hand-written kernel, on the CPU they run its plain PyTorch version. The
+solve runs on the CUDA device unless the caller passes ``device="cpu"``.
 
 The JAX package's ``_precompute`` stores the stencil of every candidate as
 [C, N, d] tensors; here ``make_dense_operands`` keeps only the x-only
@@ -37,7 +38,8 @@ class DenseSolution:
 
 def make_dense_step(problem: ControlProblem, grid: Grid, controls, device=None,
                     eval_sweeps: int = 10):
-    """Build the outer-sweep function.
+    """Build the outer-sweep function on ``device`` (None: the default CUDA
+    device).
 
     Returns (step, init_v) where step(v, n_outer) runs n_outer modified-PI
     sweeps and returns (v_new, residual_of_last_sweep) — the residual as a
@@ -80,7 +82,8 @@ def dense_vi(
     v0=None,
     verbose: bool = False,
 ) -> DenseSolution:
-    """Solve the MCA Bellman equation on the full grid.
+    """Solve the MCA Bellman equation on the full grid, on ``device`` (None:
+    the default CUDA device; without one torch raises).
 
     Outer sweeps run in chunks; convergence when the sup-norm change of one
     outer sweep < tol, or the plateau stop at the f32 residual floor.
@@ -129,7 +132,8 @@ def dense_policy(problem: ControlProblem, grid: Grid, v, controls, device=None,
                  refine_steps: int = 0):
     """Greedy policy u*(node) = argmin_u Bellman RHS against a dense v.
 
-    Returns u [*grid.shape, du]. ``refine_steps > 0`` (continuous polishing
+    Returns u [*grid.shape, du] on ``device`` (None: the default CUDA
+    device). ``refine_steps > 0`` (continuous polishing
     of the brute-force winner) needs ``solvers/ttvi.refine_controls``, which
     is not ported yet.
     """

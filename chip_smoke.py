@@ -8,9 +8,15 @@ non-zero, with no result line):
   A  environment: the card, its power limit, the CUDA version; no card -> fail
   B  build kernel K1 (csrc/dense_backup.cu) with nvcc for sm_90a
   C  K1 against its plain PyTorch version on the card (pendulum 31^2, LQ
-     21^2, 6D quadcopter 9^6 and 11^6), and per-sweep times of both
+     21^2, 6D quadcopter 9^6 and 11^6); an improve sweep against the evaluate
+     sweep under its argmin (bit-equal) and against its 64-bit-index form
+     (bit-equal); per-sweep times of kernel and plain version, as a loop of
+     launches between one CUDA-event pair and as the median of single
+     launches; improve times at 1, 4, 9 and 25 candidates at 11^6; each
+     sweep's bound (bytes at 3.35 TB/s, float32 operations at 67 TFLOP/s)
   D  dense_vi on the quadcopter at 9^6 and 11^6 with the oracle's settings,
-     held against the stored solves experiments/artifacts/quad_dense_v{9,11}.npz
+     held against the stored solves experiments/artifacts/quad_dense_v{9,11}.npz,
+     with the solve's peak device memory
   E  256 x 400-step Euler–Maruyama rollouts under the implicit policy on the
      9^6 value, against the same rollouts on the stored value
 Then one JSON line of the kernels, and as the last line
@@ -37,6 +43,8 @@ VALUE_BAR = 2e-4     # |kernel - plain| <= VALUE_BAR * max(1, |plain|)
 TIE_BAR = 1e-5       # argmins may differ where the two best rhs are this close
 SOLVE_BAR = 5e-3     # max |v - stored v| after dense_vi (value range ~98)
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
+F32_FLOP_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 DEVICE = torch.device("cuda")
 
 
@@ -66,10 +74,12 @@ def phase_b_build():
     # registers and spills of the 6D / 2-control instantiations, from ptxas -v
     text = (_ext.build_dir() / "build.log").read_text()
     for kind in ("dense_backup_kernel", "dense_evaluate_kernel"):
-        m = re.search(kind + r"ILi6ELi2E.*?Used (\d+) registers", text, re.S)
-        spill = re.search(kind + r"ILi6ELi2E.*?(\d+) bytes spill stores", text, re.S)
-        log(f"[B] {kind}<6,2>: registers {m.group(1) if m else '?'}, "
-            f"spill stores {spill.group(1) if spill else '?'} B")
+        # ...ILi6ELi2EjE...: d = 6, du = 2, 32-bit (unsigned int) indices
+        m = re.search(kind + r"ILi6ELi2EjE.*?Used (\d+) registers", text, re.S)
+        spill = re.search(kind + r"ILi6ELi2EjE.*?(\d+) bytes spill stores", text, re.S)
+        if m is None or spill is None:
+            raise RuntimeError(f"build.log has no ptxas line for {kind}<6,2,uint32>")
+        log(f"[B] {kind}<6,2,uint32>: registers {m.group(1)}, spill stores {spill.group(1)} B")
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -85,6 +95,48 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def loop_ms(fn, launches=50, warmup=3):
+    """Milliseconds a call of fn() over a loop of calls between one CUDA-event
+    pair: the device's time a launch, without the host time of the wrapper
+    as long as the host enqueues faster than the device runs."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def sweep_bounds(ops):
+    """The least time the card could take for one improve and one evaluate
+    sweep on these operands: the larger of bytes / memory rate (each input
+    read once, each output written once) and float32 operations / peak rate,
+    counted for the factored form of csrc/dense_backup.cu on this data."""
+    N, d = ops.x.shape
+    du, C = ops.problem.du, ops.uc.shape[0]
+    node_in = 4 * (d + d * du + d + 1) + 1 + 4 + 4     # f0, G, s2, q, t_mask, t_val, v
+    cand = 4 * C * (du + 1)                            # uc, r
+    per_node = d * (7 + du) + 1                        # f0h, Gh, a, Q0, A0
+    per_cand = d * (2 * du + 3) + 8                    # fh, Q, S, then dt, exp and the sum
+    n_term = int(ops.t_mask.sum())                     # evaluate only copies t_val there
+    work = {
+        "dense_backup": (N * (node_in + 8) + cand, N * (per_node + C * per_cand)),
+        "dense_evaluate": ((N - n_term) * (node_in + 8) + n_term * 9 + cand,
+                           (N - n_term) * (per_node + per_cand)),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops}
+    return out
 
 
 def compare_sweep(ops, v, clip, pin_input, label):
@@ -110,6 +162,15 @@ def compare_sweep(ops, v, clip, pin_input, label):
         f"evaluate max|diff| {eerr.max().item():.3e} (over bar: {ebad})")
     if bad or best_bad or ebad or not torch.isfinite(kv).all() or not torch.isfinite(ke).all():
         raise AssertionError(f"K1 disagrees with its plain version: {label}")
+    # the 64-bit-index form of both kernels decodes the same nodes
+    wv, wb = db.dense_backup(ops, v, clip, pin_input, _wide_index=True)
+    we = db.dense_evaluate(ops, v, pb, _wide_index=True)
+    if not (torch.equal(wv, kv) and torch.equal(wb, kb) and torch.equal(we, ke)):
+        raise AssertionError(f"K1 with 64-bit indices differs from 32-bit: {label}")
+    if clip is None and not pin_input:
+        # dense_vi's pair: evaluating under improve's own argmin repeats its value
+        if not torch.equal(db.dense_evaluate(ops, v, kb), kv):
+            raise AssertionError(f"improve and evaluate under its argmin are not bit-equal: {label}")
     return err.max().item(), eerr.max().item()
 
 
@@ -120,7 +181,7 @@ def phase_c_kernel_vs_plain(sizes=(9, 11)):
 
     dev = DEVICE
     errs = {"dense_backup": 0.0, "dense_evaluate": 0.0}
-    times = {}
+    times, bounds = {}, {}
 
     def note(e):
         errs["dense_backup"] = max(errs["dense_backup"], e[0])
@@ -154,18 +215,32 @@ def phase_c_kernel_vs_plain(sizes=(9, 11)):
                                    f"quadcopter {n}^6, 25 candidates, {vname}, {sem} semantics"))
         v = inputs["random v"]
         _, best = db.dense_backup(ops, v)
-        t = dict(
-            backup_kernel=cuda_ms(lambda: db.dense_backup(ops, v)),
-            backup_plain=cuda_ms(lambda: db.dense_backup_reference(ops, v)),
-            evaluate_kernel=cuda_ms(lambda: db.dense_evaluate(ops, v, best)),
-            evaluate_plain=cuda_ms(lambda: db.dense_evaluate_reference(ops, v, best)),
+        calls = dict(
+            backup_kernel=lambda: db.dense_backup(ops, v),
+            backup_plain=lambda: db.dense_backup_reference(ops, v),
+            evaluate_kernel=lambda: db.dense_evaluate(ops, v, best),
+            evaluate_plain=lambda: db.dense_evaluate_reference(ops, v, best),
         )
-        times[n] = t
-        log(f"[C] quadcopter {n}^6 per-sweep ms (median of 20, CUDA events): "
-            + ", ".join(f"{k} {x:.4f}" for k, x in t.items()))
-        del ops, inputs, v, best
+        single = {k: cuda_ms(fn) for k, fn in calls.items()}
+        log(f"[C] quadcopter {n}^6 per-sweep ms (median of 20 single launches, CUDA events): "
+            + ", ".join(f"{k} {x:.4f}" for k, x in single.items()))
+        times[n] = {k: loop_ms(fn, 100 if k.endswith("kernel") else 50)
+                    for k, fn in calls.items()}
+        log(f"[C] quadcopter {n}^6 per-sweep ms (loop of 100 kernel or 50 plain launches "
+            "between one event pair): " + ", ".join(f"{k} {x:.4f}" for k, x in times[n].items()))
+        bounds[n] = sweep_bounds(ops)
+        log(f"[C] quadcopter {n}^6 bounds: " + json.dumps(bounds[n]))
+        if n == max(sizes):
+            by_c = {}
+            for nc in (1, 2, 3, 5):   # 1, 4, 9 and 25 candidates: the base and the slope
+                ops_c = db.make_dense_operands(prob, grid, prob.control_candidates(nc), dev)
+                by_c[nc * nc] = loop_ms(lambda: db.dense_backup(ops_c, v), 100)
+                del ops_c
+            log(f"[C] quadcopter {n}^6 improve ms by candidate count (loop of 100): "
+                + ", ".join(f"C={c} {x:.4f}" for c, x in by_c.items()))
+        del ops, inputs, v, best, calls
         torch.cuda.empty_cache()
-    return errs, times
+    return errs, times, bounds
 
 
 def phase_d_solve(sizes=(9, 11)):
@@ -181,11 +256,13 @@ def phase_d_solve(sizes=(9, 11)):
         grid = prob.default_grid(n)
         before = (db.dense_backup.launches, db.dense_evaluate.launches)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         sol = dense_vi(prob, grid, controls=prob.control_candidates(5), tol=1e-5,
                        max_outer=3000, chunk=25, eval_sweeps=10, device=dev)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
         improves = db.dense_backup.launches - before[0]
         evals = db.dense_evaluate.launches - before[1]
         if improves != sol.sweeps or evals != 10 * sol.sweeps:
@@ -200,7 +277,8 @@ def phase_d_solve(sizes=(9, 11)):
         dmax, dq95 = diff.max().item(), torch.quantile(diff.reshape(-1), 0.95).item()
         log(f"[D] dense_vi quadcopter {n}^6: {sol.sweeps} outer sweeps, residual "
             f"{sol.residual:.3e}, floored {sol.floored}, wall {wall:.2f} s, launches "
-            f"{improves} improve + {evals} evaluate; vs stored v max {dmax:.3e} q95 {dq95:.3e}")
+            f"{improves} improve + {evals} evaluate, peak device memory {peak_mib:.1f} MiB; "
+            f"vs stored v max {dmax:.3e} q95 {dq95:.3e}")
         if dmax > SOLVE_BAR:
             raise AssertionError(f"{n}^6: max |v - stored v| {dmax:.3e} > {SOLVE_BAR}")
         values[n] = sol.v
@@ -253,7 +331,7 @@ def main():
     phase_b_build()
     from c3sc_tpu_torch.ops import dense_backup as db
 
-    errs, times = phase_c_kernel_vs_plain()
+    errs, times, bounds = phase_c_kernel_vs_plain()
     # the main path's run: counts start at 0 here and are read right after
     db.dense_backup.launches = 0
     db.dense_evaluate.launches = 0
@@ -264,16 +342,18 @@ def main():
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    t11 = times[11]
+    # times and bounds of the 11^6 quadcopter sweep with 25 candidates; no single
+    # PyTorch call computes either sweep, so there is no library time
+    t11, b11 = times[11], bounds[11]
     kernels = [
-        {"name": "dense_backup", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "c3sc_tpu/ops/pallas_dense.py:107",
-         "launches": launches["dense_backup"], "max_abs_err": errs["dense_backup"],
-         "ms": t11["backup_kernel"], "plain_ms": t11["backup_plain"]},
-        {"name": "dense_evaluate", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "c3sc_tpu/solvers/dense.py:122",
-         "launches": launches["dense_evaluate"], "max_abs_err": errs["dense_evaluate"],
-         "ms": t11["evaluate_kernel"], "plain_ms": t11["evaluate_plain"]},
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": t11[key + "_kernel"], "plain_ms": t11[key + "_plain"],
+         "bound_ms": b11[name]["bound_ms"], "bound_by": b11[name]["bound_by"],
+         "library_ms": None}
+        for name, key, replaces in (
+            ("dense_backup", "backup", "c3sc_tpu/ops/pallas_dense.py:107"),
+            ("dense_evaluate", "evaluate", "c3sc_tpu/solvers/dense.py:122"))
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

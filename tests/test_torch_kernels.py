@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from c3sc_tpu_torch import models as tm
+from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 from c3sc_tpu_torch.convert import value_from_npz
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.ops import dense_backup as db
@@ -60,6 +61,79 @@ def test_kernel_matches_plain_on_card(cuda, n):
                                    rtol=2e-4, atol=2e-4)
 
 
+def _synthetic_problem(d, du):
+    """A structured problem of any (d, du): x-dependent affine drift, constant
+    diagonal noise, quadratic cost, boundaries cycling periodic/absorb/reflect."""
+    rng = np.random.default_rng(10 * d + du)
+    A, B = 0.5 * rng.normal(size=(d, d)), rng.normal(size=(d, du))
+    sig = rng.uniform(0.1, 0.5, d)
+
+    def on(a, x):
+        return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+
+    def f0(x):
+        return torch.sin(x) @ on(A, x).T
+
+    def G(x):
+        return on(B, x) * (1.0 + 0.1 * torch.cos(x[..., :1, None]))
+
+    def q(x):
+        return torch.sum(x * x, dim=-1)
+
+    def r(u):
+        return 0.1 * torch.sum(u * u, dim=-1)
+
+    return ControlProblem(
+        dx=d, du=du, dw=d, lb=(-1.0,) * d, ub=(1.0,) * d,
+        boundary=tuple((Boundary.PERIODIC, Boundary.ABSORB, Boundary.REFLECT)[k % 3]
+                       for k in range(d)),
+        ulb=(-1.0,) * du, uub=(1.0,) * du,
+        drift=lambda x, u: f0(x) + torch.einsum("...dm,...m->...d", G(x), u),
+        diff=lambda x, u: torch.diag(on(sig, x)).expand(*x.shape[:-1], d, d),
+        stage_cost=lambda x, u: q(x) + r(u),
+        boundary_cost=lambda x: 5.0 + 0.0 * x[..., 0],
+        beta=0.5, name=f"synthetic{d}x{du}", value_bounds=(0.0, 50.0),
+        drift_f0=f0, drift_G=G, sigma2_x=lambda x: (on(sig, x) ** 2).expand(x.shape),
+        cost_q=q, cost_r=r)
+
+
+@pytest.mark.parametrize("d,du,shape,n_cand", [(3, 4, (7, 16, 9), 5), (5, 3, (4, 5, 6, 3, 8), 3)])
+def test_other_instantiations_and_index_widths(cuda, d, du, shape, n_cand):
+    """(d, du) pairs beside the quadcopter's and the pendulum's, on unequal
+    grid shapes; 625 candidates at du = 4 span two shared-memory tiles. The
+    64-bit-index kernels give the 32-bit ones' bits."""
+    tp = _synthetic_problem(d, du)
+    grid = tp.default_grid(shape)
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
+    v = _random_v(grid.shape, cuda)
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        got, best = db.dense_backup(ops, v, clip, pin)
+        want, wbest = db.dense_backup_reference(ops, v, clip, pin)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        top2 = torch.topk(db.candidate_rhs(ops, v, clip, pin), 2, dim=0, largest=False).values
+        near_tie = (top2[1] - top2[0]) <= TIE * top2[0].abs().clamp(min=1.0)
+        assert not torch.any((best != wbest) & ~near_tie)
+        wide, wide_best = db.dense_backup(ops, v, clip, pin, _wide_index=True)
+        assert torch.equal(wide, got) and torch.equal(wide_best, best)
+    torch.testing.assert_close(db.dense_evaluate(ops, v, wbest),
+                               db.dense_evaluate_reference(ops, v, wbest), rtol=2e-4, atol=2e-4)
+    assert torch.equal(db.dense_evaluate(ops, v, wbest, _wide_index=True),
+                       db.dense_evaluate(ops, v, wbest))
+
+
+@pytest.mark.parametrize("n", [5, 9])
+def test_improve_and_evaluate_under_its_argmin_are_bit_equal(cuda, n):
+    """Both kernels inline one candidate_rhs of explicit round-to-nearest
+    steps, so dense_vi's evaluate under improve's own argmin repeats its value."""
+    tp = tm.make_problem("quadcopter", **QUAD)
+    grid = tp.default_grid(n)
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(5), cuda)
+    vs = [_random_v(grid.shape, cuda)] + ([value_from_npz(V5, cuda).contiguous()] if n == 5 else [])
+    for v in vs:
+        vnew, best = db.dense_backup(ops, v)
+        assert torch.equal(db.dense_evaluate(ops, v, best), vnew)
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda):
     tp = tm.make_problem("pendulum")
     uc = tp.control_candidates(5)
@@ -87,5 +161,5 @@ def test_dense_vi_runs_through_the_kernels(cuda):
     assert db.dense_backup.launches - before[0] == sol.sweeps
     assert db.dense_evaluate.launches - before[1] == 10 * sol.sweeps
     assert sol.v.device.type == "cuda"
-    want = value_from_npz(V5).numpy()
+    want = value_from_npz(V5, "cpu").numpy()
     assert np.abs(sol.v.cpu().numpy() - want).max() <= 1e-4 * (want.max() - want.min())

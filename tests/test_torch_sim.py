@@ -32,7 +32,7 @@ V5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 def _quad5():
     jp, tp = jm.make_problem("quadcopter", **QUAD), tm.make_problem("quadcopter", **QUAD)
-    v = value_from_npz(V5)
+    v = value_from_npz(V5, "cpu")
     return jp, tp, jp.default_grid(5), tp.default_grid(5), v
 
 
@@ -144,6 +144,6 @@ def test_rollout_generator_and_trajectory_files(tmp_path):
     back = jint.trajectory_load(str(tmp_path / "port.npz"))
     np.testing.assert_array_equal(np.asarray(back.xs), a.xs.numpy())
     jint.trajectory_save(str(tmp_path / "jax.npz"), back)
-    again = trajectory_load(str(tmp_path / "jax.npz"))
+    again = trajectory_load(str(tmp_path / "jax.npz"), "cpu")
     for x, y in zip(again, a):
         assert torch.equal(x, y)

@@ -29,10 +29,10 @@ def test_pendulum_slice_matches_jax(tmp_path):
     tg = grid_from_numpy(jg.lb, jg.ub, jg.shape, jg.periodic, jg.nodes_override)
     uc = jp.control_candidates(9)
     jsol = jdense_vi(jp, jg, controls=uc, tol=1e-5, max_outer=600)
-    sol = dense_vi(tp, tg, controls=uc, tol=1e-5, max_outer=600)
+    sol = dense_vi(tp, tg, controls=uc, tol=1e-5, max_outer=600, device="cpu")
     # the value crosses over as the CLI stores it
     np.savez(tmp_path / "vf.npz", v=np.asarray(jsol.v))
-    jv = value_from_npz(str(tmp_path / "vf.npz"))
+    jv = value_from_npz(str(tmp_path / "vf.npz"), "cpu")
     assert jv.shape == sol.v.shape
     np.testing.assert_allclose(sol.v.numpy(), jv.numpy(), atol=1e-4 * float(jv.max() - jv.min()))
 
