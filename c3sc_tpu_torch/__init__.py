@@ -9,16 +9,18 @@ in float32. Entry points run on the CUDA device (``default_device()``)
 unless the caller passes ``device="cpu"``; functions that take tensors
 follow their inputs.
 
-Ported so far (the dense Bellman path):
+Ported so far (the dense Bellman path and the fused TT value iteration):
   grids.py            tensor-product grids (uniform and non-uniform)
   models/             ControlProblem + quadcopter, pendulum, LQ
   ops/mca.py          Kushner–Dupuis stencil
   ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cu)
   ops/interp.py       multilinear interpolation
+  ops/tt.py           padded tensor trains: evaluation, add, round, save/load
   solvers/dense.py    dense_vi (modified policy iteration), dense_policy
+  solvers/fused.py    make_fused_vi, fused_tt_vi (square scheme; plain PyTorch)
   sim/                implicit policy, batched rollouts
   convert.py          numpy carriers of state from the JAX package
-  device.py           the default device of every ``device=None``
+  device.py           the default device of every ``device=None``; constants kept on it
 
 This package never imports ``jax`` or ``c3sc_tpu``.
 """

@@ -12,6 +12,7 @@ their inputs' device instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,23 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``, the default one for None."""
     return default_device() if device is None else torch.device(device)
+
+
+_CONSTANTS: dict = {}
+
+
+def const_tensor(values, dtype, device) -> torch.Tensor:
+    """A small static array (grid bounds, spacings, node sets, a model's
+    constant matrix) as a tensor on ``device``, uploaded ONCE and kept.
+
+    ``torch.as_tensor(python_values, device="cuda")`` copies from pageable
+    host memory, and for that copy torch makes the host wait until the
+    device has drained its queue: inside a solver's iteration each such
+    call is a host sync. Callers must not write into the result.
+    """
+    arr = np.asarray(values)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(arr, dtype=dtype, device=device)
+    return t

@@ -17,7 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from c3sc_tpu_torch.device import resolve_device
+from c3sc_tpu_torch.device import const_tensor, resolve_device
 
 
 def float_mod(x, y):
@@ -170,10 +170,10 @@ class Grid:
         """idx [..., d] int -> x [..., d] float32."""
         f32 = torch.float32
         if self.nodes_override is None:
-            lb = torch.as_tensor(self.lb, dtype=f32, device=idx.device)
-            h = torch.as_tensor(self.h, dtype=f32, device=idx.device)
+            lb = const_tensor(self.lb, f32, idx.device)
+            h = const_tensor(self.h, f32, idx.device)
             return lb + idx.to(f32) * h
-        cols = [torch.as_tensor(self.nodes(k), dtype=f32, device=idx.device)[idx[..., k]]
+        cols = [const_tensor(self.nodes(k), f32, idx.device)[idx[..., k]]
                 for k in range(self.ndim)]
         return torch.stack(cols, dim=-1)
 
@@ -185,17 +185,17 @@ class Grid:
         """
         dev = x.device
         if self.nodes_override is None:
-            lb = torch.as_tensor(self.lb, dtype=x.dtype, device=dev)
-            h = torch.as_tensor(self.h, dtype=x.dtype, device=dev)
+            lb = const_tensor(self.lb, x.dtype, dev)
+            h = const_tensor(self.h, x.dtype, dev)
             t = (x - lb) / h
-            hi = torch.as_tensor([n - 1 if p else n - 2
-                                  for n, p in zip(self.shape, self.periodic)], device=dev)
+            hi = const_tensor([n - 1 if p else n - 2
+                               for n, p in zip(self.shape, self.periodic)], torch.int64, dev)
             cell = torch.minimum(torch.clamp(torch.floor(t).to(torch.int64), min=0), hi)
             w = t - cell.to(t.dtype)
             return cell, torch.clamp(w, 0.0, 1.0)
         cells, ws = [], []
         for k in range(self.ndim):
-            nk = torch.as_tensor(self.nodes(k), dtype=x.dtype, device=dev)
+            nk = const_tensor(self.nodes(k), x.dtype, dev)
             xk = x[..., k].contiguous()
             c = torch.searchsorted(nk, xk, right=True) - 1
             c = torch.clamp(c, 0, self.shape[k] - 2)
@@ -212,25 +212,25 @@ class Grid:
         dims return the static h.
         """
         if self.nodes_override is None:
-            h = torch.as_tensor(self.h, dtype=x.dtype, device=x.device).expand(x.shape)
+            h = const_tensor(self.h, x.dtype, x.device).expand(x.shape)
             return h, h
         hps, hms = [], []
         for k in range(self.ndim):
-            nk = torch.as_tensor(self.nodes(k), dtype=x.dtype, device=x.device)
+            nk = const_tensor(self.nodes(k), x.dtype, x.device)
             mid = 0.5 * (nk[1:] + nk[:-1])
             j = torch.clamp(torch.searchsorted(mid, x[..., k].contiguous()),
                             0, self.shape[k] - 1)
             hp_k, hm_k = self.node_h(k)
-            hps.append(torch.as_tensor(hp_k, dtype=x.dtype, device=x.device)[j])
-            hms.append(torch.as_tensor(hm_k, dtype=x.dtype, device=x.device)[j])
+            hps.append(const_tensor(hp_k, x.dtype, x.device)[j])
+            hms.append(const_tensor(hm_k, x.dtype, x.device)[j])
         return torch.stack(hps, -1), torch.stack(hms, -1)
 
     def wrap_state(self, x):
         """Wrap periodic coordinates of x into [lb, ub)."""
-        lb = torch.as_tensor(self.lb, dtype=x.dtype, device=x.device)
-        ub = torch.as_tensor(self.ub, dtype=x.dtype, device=x.device)
+        lb = const_tensor(self.lb, x.dtype, x.device)
+        ub = const_tensor(self.ub, x.dtype, x.device)
         wrapped = lb + float_mod(x - lb, ub - lb)
-        per = torch.as_tensor(self.periodic, device=x.device)
+        per = const_tensor(self.periodic, torch.bool, x.device)
         return torch.where(per, wrapped, x)
 
     def neighbor_index(self, idx, dim: int, step: int):

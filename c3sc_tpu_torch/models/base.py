@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import const_tensor
 from c3sc_tpu_torch.grids import Grid
 
 Tensor = torch.Tensor
@@ -47,8 +48,8 @@ class Obstacle:
 
     def contains(self, x: Tensor) -> Tensor:
         """Boolean mask [...] of states inside the (closed) rectangle."""
-        lb = torch.as_tensor(self.lb, dtype=x.dtype, device=x.device)
-        ub = torch.as_tensor(self.ub, dtype=x.dtype, device=x.device)
+        lb = const_tensor(self.lb, x.dtype, x.device)
+        ub = const_tensor(self.ub, x.dtype, x.device)
         return torch.all((x >= lb) & (x <= ub), dim=-1)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import const_tensor
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem, batch_shape
 
 A = np.array([[0.0, 1.0], [0.0, 0.0]])
@@ -23,7 +24,7 @@ B = np.array([[0.0], [1.0]])
 
 def _quad_form(x, M: np.ndarray):
     """x' M x over the last axis, as ``x @ (M @ x)``."""
-    Mt = torch.as_tensor(M, dtype=x.dtype, device=x.device)
+    Mt = const_tensor(M, x.dtype, x.device)
     return torch.sum(x * (x @ Mt.T), dim=-1)
 
 
@@ -59,11 +60,11 @@ def make_lq_problem(
         return torch.stack([x[..., 1], torch.zeros_like(x[..., 1])], dim=-1)
 
     def drift_G(x):
-        G = torch.tensor([[0.0], [1.0]], dtype=x.dtype, device=x.device)
+        G = const_tensor([[0.0], [1.0]], x.dtype, x.device)
         return G.expand(*x.shape[:-1], 2, 1)
 
     def sigma2_x(x):
-        return torch.tensor([0.0, sigma**2], dtype=x.dtype, device=x.device).expand(x.shape)
+        return const_tensor([0.0, sigma**2], x.dtype, x.device).expand(x.shape)
 
     return ControlProblem(
         dx=2, du=1, dw=1,

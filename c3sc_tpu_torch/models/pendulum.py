@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import const_tensor
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem, batch_shape
 
 
@@ -53,11 +54,11 @@ def make_pendulum_problem(
                            dim=-1)
 
     def drift_G(x):
-        G = torch.tensor([[0.0], [1.0 / ml2]], dtype=x.dtype, device=x.device)
+        G = const_tensor([[0.0], [1.0 / ml2]], x.dtype, x.device)
         return G.expand(*x.shape[:-1], 2, 1)
 
     def sigma2_x(x):
-        return torch.tensor([0.0, sigma**2], dtype=x.dtype, device=x.device).expand(x.shape)
+        return const_tensor([0.0, sigma**2], x.dtype, x.device).expand(x.shape)
 
     def cost_q(x):
         return w_th * 2.0 * (1.0 - torch.cos(x[..., 0])) + w_om * x[..., 1] ** 2

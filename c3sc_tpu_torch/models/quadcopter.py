@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from c3sc_tpu_torch.device import const_tensor
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem, batch_shape
 
 
@@ -85,8 +86,8 @@ def make_quadcopter_problem(
         return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
     def sigma2_x(x):
-        s2 = torch.tensor([0.0, 0.0, 0.0, sigma_v**2, sigma_v**2, sigma_om**2],
-                          dtype=x.dtype, device=x.device)
+        s2 = const_tensor([0.0, 0.0, 0.0, sigma_v**2, sigma_v**2, sigma_om**2],
+                          x.dtype, x.device)
         return s2.expand(x.shape)
 
     def cost_q(x):

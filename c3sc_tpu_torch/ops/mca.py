@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from c3sc_tpu_torch.device import const_tensor
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 
@@ -30,7 +31,7 @@ def transition(problem: ControlProblem, grid: Grid, x, u):
     f = problem.drift(x, u)
     s2 = problem.sigma2_diag(x, u)
     if grid.uniform:
-        h = torch.as_tensor(grid.h, dtype=f.dtype, device=f.device)
+        h = const_tensor(grid.h, f.dtype, f.device)
         return _stencil_from_fs2(f, s2, h)
     hp, hm = grid.local_h(x)
     return _stencil_nonuniform(f, s2, hp.to(f.dtype), hm.to(f.dtype))
@@ -85,7 +86,7 @@ def transition_all_controls(problem: ControlProblem, grid: Grid, x, uc):
     else:
         s2 = problem.sigma2_diag(x[None], uc[:, None])         # [C, B, d]
     if grid.uniform:
-        h = torch.as_tensor(grid.h, dtype=f.dtype, device=f.device)
+        h = const_tensor(grid.h, f.dtype, f.device)
         return _stencil_from_fs2(f, s2, h)
     hp, hm = grid.local_h(x)                                   # [B, d] each
     return _stencil_nonuniform(f, s2, hp[None].to(f.dtype), hm[None].to(f.dtype))

@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from c3sc_tpu_torch.device import resolve_device
+from c3sc_tpu_torch.device import const_tensor, resolve_device
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 
@@ -52,8 +52,8 @@ def _apply_boundaries(problem: ControlProblem, grid: Grid, x):
     Periodic dims wrap, reflect dims clamp; absorbing dims leaving the box
     (or entering an obstacle) absorb.
     """
-    lb = torch.as_tensor(problem.lb, dtype=x.dtype, device=x.device)
-    ub = torch.as_tensor(problem.ub, dtype=x.dtype, device=x.device)
+    lb = const_tensor(problem.lb, x.dtype, x.device)
+    ub = const_tensor(problem.ub, x.dtype, x.device)
     x = grid.wrap_state(x)
     absorbed = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
     cols = []

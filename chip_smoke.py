@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the c3sc_tpu_torch dense Bellman path once on one NVIDIA GPU.
+"""Drive the c3sc_tpu_torch dense Bellman path and the fused TT value
+iteration once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              every phase
+    python3 chip_smoke.py --phases F   phases A, B and F only (while developing)
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -19,6 +21,20 @@ non-zero, with no result line):
      with the solve's peak device memory
   E  256 x 400-step Euler–Maruyama rollouts under the implicit policy on the
      9^6 value, against the same rollouts on the stored value
+  F  the fused TT value iteration (plain PyTorch, no hand kernel):
+     F.1 the card against the CPU (quadcopter 9^6, rmax 16): every block of a
+         half sweep on identical inputs, values within 1e-4 x max|v|; and a
+         solve that converges (pendulum 31^2) against the dense solve, < 3 %
+     F.2 the 9^6 solve (rmax 16, 25 candidates, tol 2e-4, patience 25, at most
+         900 iterations) against phase D's dense solve: interior q95 of
+         |v_tt - v_dense| / range <= 0.25; then the probe harvest at a small depth
+     F.3 the bench configuration at full width: 31^6, rmax 16 and 32, tol 0:
+         ms/iteration over 200 iterations, active backups/s, warm 3-iteration
+         replan, for the eager loop and for the CUDA graph of one iteration
+     F.4 torch.profiler over 10 warm iterations at 31^6 rmax 16: device-busy
+         time, idle share, and the device time and launches of the two blocks
+         of a core-step (fiber_backup, core_fit); no host sync inside the window
+     F.5 phase E's rollouts on the TT value of F.2 through tt_lerp_eval
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -42,6 +58,8 @@ QUAD = dict(sigma_v=0.15, sigma_om=0.15)   # the dense oracle's quadcopter
 VALUE_BAR = 2e-4     # |kernel - plain| <= VALUE_BAR * max(1, |plain|)
 TIE_BAR = 1e-5       # argmins may differ where the two best rhs are this close
 SOLVE_BAR = 5e-3     # max |v - stored v| after dense_vi (value range ~98)
+PARITY_BAR = 1e-4    # card against CPU on values, relative to max|v| (phase F.1)
+FUSED_Q95_BAR = 0.25  # interior q95 of |v_tt - v_dense| / (max - min of v_dense), 9^6 rmax 16
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -285,6 +303,17 @@ def phase_d_solve(sizes=(9, 11)):
     return values
 
 
+def _rollout_inputs(prob, n_rollouts, n_steps):
+    """x0 as the CLI draws it (seed 0) and one noise tensor from seed 0."""
+    rng = np.random.default_rng(0)
+    lb, ub = np.asarray(prob.lb), np.asarray(prob.ub)
+    mid, span = (lb + ub) / 2, (ub - lb) / 2
+    x0 = torch.as_tensor(mid + 0.5 * span * rng.uniform(-1, 1, (n_rollouts, prob.dx)),
+                         dtype=torch.float32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    return x0, torch.randn((n_steps, n_rollouts, prob.dw), generator=gen, device=DEVICE)
+
+
 def phase_e_rollouts(v9, n_rollouts=256, n_steps=400, dt=0.01):
     from c3sc_tpu_torch.convert import value_from_npz
     from c3sc_tpu_torch.models import make_problem
@@ -295,13 +324,7 @@ def phase_e_rollouts(v9, n_rollouts=256, n_steps=400, dt=0.01):
     prob = make_problem("quadcopter", **QUAD)
     grid = prob.default_grid(tuple(v9.shape))
     controls = torch.as_tensor(prob.control_candidates(5), dtype=torch.float32, device=dev)
-    rng = np.random.default_rng(0)  # x0 as the CLI draws it (seed 0)
-    lb, ub = np.asarray(prob.lb), np.asarray(prob.ub)
-    mid, span = (lb + ub) / 2, (ub - lb) / 2
-    x0 = torch.as_tensor(mid + 0.5 * span * rng.uniform(-1, 1, (n_rollouts, prob.dx)),
-                         dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    noise = torch.randn((n_steps, n_rollouts, prob.dw), generator=gen, device=dev)
+    x0, noise = _rollout_inputs(prob, n_rollouts, n_steps)
     stored = value_from_npz(os.path.join(ART, f"quad_dense_v{v9.shape[0]}.npz"), dev)
     out = {}
     for label, v in (("port v", v9), ("stored v", stored)):
@@ -326,7 +349,330 @@ def phase_e_rollouts(v9, n_rollouts=256, n_steps=400, dt=0.01):
                              f"survival {s_p:.4f} vs {s_s:.4f}")
 
 
+def _quad_fused(n, rmax, device, **kw):
+    """The quadcopter's fused solver at n^6 with 25 candidates."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.solvers import make_fused_vi
+
+    prob = make_problem("quadcopter", **kw.pop("problem_kw", QUAD))
+    grid = prob.default_grid(n)
+    return prob, grid, make_fused_vi(prob, grid, prob.control_candidates(5), rmax=rmax,
+                                     device=device, **kw)
+
+
+def phase_f1_device_parity(n=9, rmax=16, warm=30):
+    """The card against the CPU, on values.
+
+    A whole adaptive iteration cannot be compared: where a fiber matrix has
+    fewer active rows than columns (core 0: 9 rows), the kick columns are
+    rounding noise normalised to unit length, so LAPACK and cuSOLVER pick
+    different, equally valid pivots there (printed, no bar). Held instead:
+    (a) every block of a left-to-right half sweep on IDENTICAL inputs, the
+        CPU's results carried forward: fiber backup (K2) within 1e-4 x max|v|,
+        ranks equal, the projector on the needed columns within 1e-3, and the
+        interpolation core from the same basis and rows within 1e-4;
+    (b) ``phase_f1c_converging_solve``: a whole solve that converges
+        (pendulum 31^2) against the dense solve, both on the card;
+    and F.2 holds the 9^6 solve against the dense solve by its statistic.
+    Neither does a frozen iteration compare: with the freeze the basis keeps
+    ``r_prev`` columns, and those beyond ``r_need`` are the free trailing
+    columns of a rank-deficient QR.
+    """
+    from c3sc_tpu_torch.solvers import fused as tf
+
+    prob, grid, cpu = _quad_fused(n, rmax, "cpu")
+    _, _, gpu = _quad_fused(n, rmax, DEVICE)
+    one = {dev: s.step_fn(s.init_fn(0), 1) for dev, s in (("cpu", cpu), ("cuda", gpu))}
+    log(f"[F.1] quadcopter {n}^6 rmax {rmax}, one ADAPTIVE iteration cuda vs cpu (no bar): "
+        f"max|dv_sample| {(one['cuda'].v_sample.cpu() - one['cpu'].v_sample).abs().max():.3e}, "
+        f"ranks {one['cuda'].ranks.tolist()} vs {one['cpu'].ranks.tolist()}")
+
+    # (a) blockwise, from the CPU carry after `warm` iterations
+    carry = cpu.step_fn(cpu.init_fn(0), warm)
+    uc = torch.as_tensor(prob.control_candidates(5), dtype=torch.float32)
+    backup = {dev: tf.make_fiber_backup(prob, grid, uc.to(dev), rmax) for dev in ("cpu", DEVICE)}
+    worst = dict(backup=0.0, projector=0.0, core=0.0)
+    vmax = carry.v_sample.abs().max().item()
+    ar = torch.arange(rmax)
+    for k in range(prob.dx - 1):
+        out = {}
+        for dev in ("cpu", DEVICE):
+            mv = lambda t, dev=dev: t.to(dev)
+            vals = backup[dev](tuple(mv(c) for c in carry.cores), mv(carry.ranks), k,
+                               mv(carry.left[k]), mv(carry.right[k + 1]))
+            row_mask = (ar < carry.rl[k])[:, None].expand(rmax, n).reshape(-1).float()
+            C = vals.reshape(rmax * n, rmax) * mv(row_mask)[:, None] \
+                * mv((ar < carry.rr[k + 1]).float())[None, :]
+            # frozen: no kick columns, so the noise plays no part
+            qe, r_need, r_new = tf._orth_basis_and_rank(
+                C, torch.zeros_like(C), 1e-4, 2, mv(torch.tensor(rmax)), mv(row_mask),
+                mv(carry.rlf[k + 1]), mv(torch.tensor(True)))
+            G = tf._interp_from_rows(qe, mv(carry.rows_l[k]), r_new)
+            out[dev] = (vals.cpu(), qe.cpu(), int(r_need), int(r_new), G.cpu())
+        (va, qa, na, ra, Ga), (vb, qb, nb, rb, Gb) = out["cpu"], out[DEVICE]
+        if (na, ra) != (nb, rb):
+            raise AssertionError(f"core {k}: ranks differ, cpu {(na, ra)} cuda {(nb, rb)}")
+        worst["backup"] = max(worst["backup"], (va - vb).abs().max().item() / vmax)
+        worst["projector"] = max(worst["projector"], (qa[:, :na] @ qa[:, :na].T
+                                                      - qb[:, :na] @ qb[:, :na].T).abs().max().item())
+        Gc = tf._interp_from_rows(qa.to(DEVICE), carry.rows_l[k].to(DEVICE),
+                                  torch.tensor(ra, device=DEVICE)).cpu()
+        worst["core"] = max(worst["core"], (Gc - Ga).abs().max().item()
+                            / max(Ga.abs().max().item(), 1.0))
+    log(f"[F.1] blocks of a half sweep on identical inputs (after {warm} iterations, max|v| "
+        f"{vmax:.3e}): fiber backup max|diff|/max|v| {worst['backup']:.3e} (bar {PARITY_BAR}), "
+        f"ranks equal, projector on the needed columns {worst['projector']:.3e} (bar 1e-3), "
+        f"interpolation core {worst['core']:.3e} (bar {PARITY_BAR})")
+    if worst["backup"] > PARITY_BAR or worst["projector"] > 1e-3 or worst["core"] > PARITY_BAR:
+        raise AssertionError(f"a block of the fused sweep differs on the card: {worst}")
+
+
+
+def phase_f1c_converging_solve(n=31, rmax=16):
+    """A case where the fused solve converges, whole on the card: pendulum
+    31^2 (beta 0.5, sigma 0.5, 9 candidates) against the dense solve there,
+    by the bar of the CPU tests: relative sup error under 3 %."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.tt import tt_gather_eval
+    from c3sc_tpu_torch.solvers import dense_vi, fused_tt_vi
+
+    prob = make_problem("pendulum", beta=0.5, sigma=0.5)
+    grid = prob.default_grid(n)
+    controls = prob.control_candidates(9)
+    dense = dense_vi(prob, grid, controls=controls, tol=1e-5, max_outer=400, chunk=100,
+                     device=DEVICE)
+    sol = fused_tt_vi(prob, grid, controls=controls, rmax=rmax, seed=0, tol=2e-4,
+                      max_iters=3000, device=DEVICE)
+    v_tt = tt_gather_eval(sol.v, grid.node_indices(DEVICE))
+    err = ((v_tt - dense.v.reshape(-1)).abs().max() / dense.v.abs().max()).item()
+    log(f"[F.1] fused_tt_vi pendulum {n}^2 rmax {rmax} on the card: {sol.iterations} iterations, "
+        f"residual {sol.residual:.3e}, wall {sol.wall_time:.2f} s; vs dense_vi on the card: "
+        f"relative sup error {err:.4f} (bar 0.03)")
+    if not err < 0.03:
+        raise AssertionError(f"fused pendulum solve on the card: sup error {err:.4f} >= 0.03")
+
+
+def phase_f2_solve(v_dense, n=9, rmax=16):
+    """The 9^6 fused solve against the dense solve, then the probe path."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.models.base import Boundary
+    from c3sc_tpu_torch.ops.tt import tt_gather_eval
+    from c3sc_tpu_torch.solvers import fused_tt_vi
+
+    prob = make_problem("quadcopter", **QUAD)
+    grid = prob.default_grid(n)
+    controls = prob.control_candidates(5)
+    sol = fused_tt_vi(prob, grid, controls=controls, rmax=rmax, seed=0, tol=2e-4,
+                      max_iters=900, patience=25, probe_rollouts=0, device=DEVICE,
+                      cuda_graph=True)
+    v_tt = tt_gather_eval(sol.v, grid.node_indices(DEVICE)).reshape(grid.shape)
+    vrange = (v_dense.max() - v_dense.min()).item()
+    rel = (v_tt.double() - v_dense.double()).abs() / vrange
+    sl = tuple(slice(1, -1) if b == Boundary.ABSORB else slice(None) for b in prob.boundary)
+    q95 = torch.quantile(rel[sl].reshape(-1).float(), 0.95).item()
+    log(f"[F.2] fused_tt_vi quadcopter {n}^6 rmax {rmax} (CUDA graph of an iteration): "
+        f"{sol.iterations} iterations, "
+        f"residual {sol.residual:.3e}, ranks {sol.v.ranks.tolist()}, wall {sol.wall_time:.2f} s "
+        f"({1e3 * sol.wall_time / max(sol.iterations, 1):.2f} ms/iteration); vs dense_vi "
+        f"(range {vrange:.2f}): max rel {rel.max().item():.4f}, interior q95 {q95:.4f} "
+        f"(bar {FUSED_Q95_BAR})")
+    if not torch.isfinite(v_tt).all() or not q95 <= FUSED_Q95_BAR:
+        raise AssertionError(f"fused {n}^6 solve: interior q95 {q95:.4f} > {FUSED_Q95_BAR} "
+                             "or a value is not finite")
+    probe = fused_tt_vi(prob, grid, controls=controls, rmax=rmax, seed=0, tol=2e-4,
+                        max_iters=100, patience=25, probe_rollouts=8, probe_steps=50,
+                        device=DEVICE)
+    log(f"[F.2] probe harvest (8 rollouts x 50 steps, 100 iterations): probe_cost "
+        f"{probe.probe_cost:.4f}, wall {probe.wall_time:.2f} s")
+    if not np.isfinite(probe.probe_cost):
+        raise AssertionError("the probe path left no finite probe_cost")
+    return sol
+
+
+def phase_f3_bench(n=31, reps=200, warmup=30):
+    """The bench configuration: default quadcopter, 31^6, 25 candidates, tol 0."""
+    carries = {}
+    for rmax in (16, 32):
+        prob, grid, solver = _quad_fused(n, rmax, DEVICE, problem_kw={}, tol=0.0,
+                                         max_iters=10**9)
+        carry = solver.step_fn(solver.init_fn(0), warmup)   # adapt the ranks, warm the caches
+        torch.cuda.synchronize()
+        ranks_pre = carry.ranks.clone()
+        t0 = time.perf_counter()
+        carry = solver.step_fn(carry, reps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steady = bool(torch.equal(carry.ranks, ranks_pre))
+        # active backups per iteration: every core-step evaluates its active
+        # fiber block rl[k] * n_k * rr[k+1], once in each half sweep (exact
+        # only when the ranks held still over the timed region)
+        rl, rr = carry.rl.tolist(), carry.rr.tolist()
+        per_iter = 2 * sum(rl[k] * grid.shape[k] * rr[k + 1] for k in range(prob.dx))
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            carry = solver.step_fn(carry, 3)
+            torch.cuda.synchronize()
+            lat.append(1e3 * (time.perf_counter() - t1))
+        log(f"[F.3] quadcopter {n}^6 rmax {rmax}, eager loop: {1e3 * wall / reps:.3f} ms/iteration "
+            f"over {reps} iterations, {per_iter} active backups/iteration, "
+            f"{per_iter * reps / wall:.4e} backups/s, ranks {carry.ranks.tolist()} held still "
+            f"{steady}, warm 3-iteration replan median {float(np.median(lat)):.3f} ms")
+        if not torch.isfinite(carry.v_sample).all():
+            raise AssertionError(f"{n}^6 rmax {rmax}: the sample values are not finite")
+        # the same loop as a CUDA graph of one masked iteration (cuda_graph=True)
+        _, _, graphed = _quad_fused(n, rmax, DEVICE, problem_kw={}, tol=0.0, max_iters=10**9,
+                                    cuda_graph=True)
+        same = (graphed.run_fn(carry, 3).v_sample - solver.run_fn(carry, 3).v_sample).abs().max()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = graphed.run_fn(carry, reps)
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = graphed.run_fn(out, 3)
+            torch.cuda.synchronize()
+            lat.append(1e3 * (time.perf_counter() - t1))
+        log(f"[F.3] quadcopter {n}^6 rmax {rmax}, CUDA graph: {1e3 * gwall / reps:.3f} ms/iteration "
+            f"over {reps} iterations, {per_iter * reps / gwall:.4e} backups/s, warm 3-iteration "
+            f"replan median {float(np.median(lat)):.3f} ms; 3 iterations graph vs eager "
+            f"max|dv_sample| {same.item():.3e}")
+        if not (torch.isfinite(out.v_sample).all() and same.item() <= PARITY_BAR * 100.0):
+            raise AssertionError(f"{n}^6 rmax {rmax}: the graphed loop differs from the eager one")
+        carries[rmax] = (solver, carry)
+    return carries
+
+
+SYNC_NAMES = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "aten::item", "aten::_local_scalar_dense")
+BLOCKS = ("fiber_backup", "core_fit")
+
+
+def profile_iterations(solver, carry, iters=10, label=""):
+    """torch.profiler over ``iters`` warm iterations: wall, device-busy time and
+    idle share of the window; device time and launches under the two
+    ``record_function`` ranges of a core-step; the host syncs inside the
+    window (there must be none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    carry = solver.step_fn(carry, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("fused_window"):
+            carry = solver.step_fn(carry, iters)
+        enqueued = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    spans = {name: [] for name in BLOCKS + ("fused_window",)}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+    (w0, w1), = spans["fused_window"]
+
+    def block_of(t):
+        for name in BLOCKS:
+            if any(a <= t <= b for a, b in spans[name]):
+                return name
+        return "other"
+
+    def op_above(e):
+        """The outermost aten op that encloses event e (below the ranges)."""
+        top = e.name
+        while e.cpu_parent is not None and e.cpu_parent.name not in spans:
+            e = e.cpu_parent
+            top = e.name if e.name.startswith("aten::") else top
+        return top
+
+    dev_ms = {name: 0.0 for name in BLOCKS + ("other",)}
+    launches = {name: 0 for name in BLOCKS + ("other",)}
+    syncs = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not (w0 <= e.time_range.start <= w1):
+            continue
+        if e.name in SYNC_NAMES:
+            key = f"{e.name} in {op_above(e)}"
+            syncs[key] = syncs.get(key, 0) + 1
+        for k in e.kernels:
+            b = block_of(e.time_range.start)
+            dev_ms[b] += k.duration / 1e3
+            launches[b] += 1
+    busy = sum(dev_ms.values())
+    if busy == 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    top = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+                  for e in prof.key_averages()), reverse=True)[:6]
+    log(f"[F.4] {label}: {iters} warm iterations under torch.profiler: wall {wall:.2f} ms "
+        f"({wall / iters:.3f} ms/iteration; host done enqueuing at {enqueued:.2f} ms), device "
+        f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}")
+    for name in BLOCKS + ("other",):
+        log(f"[F.4]   {name}: device {dev_ms[name] / iters:.3f} ms/iteration in "
+            f"{launches[name] / iters:.0f} launches/iteration")
+    for ms, count, key in top:
+        log(f"[F.4]   {ms / iters:.4f} ms/iteration in {count / iters:.0f} launches/iteration: "
+            f"{key[:80]}")
+    log(f"[F.4]   host syncs inside the window, by the aten op they sit in: "
+        f"{syncs if syncs else 'none'}")
+    if syncs:
+        raise AssertionError(f"an iteration reads the device on the host: {syncs}")
+    return dict(wall_ms=wall / iters, busy_ms=busy / iters, idle=1 - busy / wall,
+                dev_ms={k: v / iters for k, v in dev_ms.items()},
+                launches={k: v / iters for k, v in launches.items()}), carry
+
+
+def phase_f5_rollouts(sol, n_rollouts=256, n_steps=400, dt=0.01):
+    """Phase E's rollouts, steered by the TT value through tt_lerp_eval."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.tt import tt_lerp_eval
+    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+
+    prob = make_problem("quadcopter", **QUAD)
+    grid = prob.default_grid(sol.v.shape)
+    controls = torch.as_tensor(sol.controls, dtype=torch.float32, device=DEVICE)
+    x0, noise = _rollout_inputs(prob, n_rollouts, n_steps)
+    policy = make_implicit_policy(prob, grid, lambda p: tt_lerp_eval(sol.v, grid, p), controls)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        traj = rollout(prob, grid, policy, x0, dt, n_steps, noise=noise)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if not torch.isfinite(traj.cost).all() or not torch.isfinite(traj.xs).all():
+        raise AssertionError("rollouts on the TT value: costs or states are not finite")
+    log(f"[F.5] rollouts on the fused TT value (tt_lerp_eval): {n_rollouts} x {n_steps} steps "
+        f"dt {dt}: mean cost {traj.cost.mean().item():.4f}, survival "
+        f"{100 * traj.alive[-1].float().mean().item():.2f}%, wall {wall:.2f} s")
+
+
+def phase_f_fused(v9):
+    phase_f1_device_parity()
+    phase_f1c_converging_solve()
+    sol = phase_f2_solve(v9)
+    carries = phase_f3_bench()
+    profile_iterations(*carries[16], label="quadcopter 31^6 rmax 16")
+    phase_f5_rollouts(sol)
+
+
+def main_fused_only():
+    """Phases A, B and F, with phase D cut to its 9^6 solve (F.2 needs it)."""
+    phase_a_environment()
+    phase_b_build()
+    phase_f_fused(phase_d_solve(sizes=(9,))[9])
+    return 0
+
+
 def main():
+    if sys.argv[1:] == ["--phases", "F"]:
+        return main_fused_only()
+    if sys.argv[1:]:
+        raise SystemExit("usage: chip_smoke.py [--phases F]")
     phase_a_environment()
     phase_b_build()
     from c3sc_tpu_torch.ops import dense_backup as db
@@ -342,6 +688,9 @@ def main():
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    # the fused TT path runs no hand-written kernel yet (its two blocks are
+    # plain PyTorch), so K1's counts above are final before it starts
+    phase_f_fused(values[9])
     # times and bounds of the 11^6 quadcopter sweep with 25 candidates; no single
     # PyTorch call computes either sweep, so there is no library time
     t11, b11 = times[11], bounds[11]

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_testing import ART, QUAD
+from torch_port_testing import within_range as _within_range
 from c3sc_tpu import models as jm
 from c3sc_tpu.solvers.dense import _precompute, neighbor_values
 from c3sc_tpu.solvers.dense import dense_policy as jdense_policy
@@ -24,14 +26,6 @@ from c3sc_tpu_torch import models as tm
 from c3sc_tpu_torch.convert import value_from_npz
 from c3sc_tpu_torch.solvers import dense_policy, dense_vi
 from c3sc_tpu_torch.solvers.dense import make_dense_step
-
-ART = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "experiments", "artifacts")
-
-
-def _within_range(got, want, frac=1e-4):
-    want = np.asarray(want)
-    assert np.abs(np.asarray(got) - want).max() <= frac * (want.max() - want.min())
 
 
 @pytest.mark.parametrize("name,n,n_controls", [("pendulum", 31, 9), ("lq", 21, 11)])
@@ -50,7 +44,7 @@ def test_dense_vi_matches_jax(name, n, n_controls):
 def test_dense_vi_quadcopter_5_matches_stored_oracle():
     """The 6D quadcopter (sigma 0.15, 25 candidates) against the committed
     JAX solve experiments/artifacts/quad_dense_v5.npz."""
-    prob = tm.make_problem("quadcopter", sigma_v=0.15, sigma_om=0.15)
+    prob = tm.make_problem("quadcopter", **QUAD)
     sol = dense_vi(prob, prob.default_grid(5), controls=prob.control_candidates(5), tol=1e-5,
                    max_outer=3000, chunk=25, eval_sweeps=10, device="cpu")
     assert sol.residual < 1e-5 or sol.floored

@@ -8,13 +8,14 @@ candidate_rhs_factored on the kernel's own operands, against the JAX package.
 """
 
 import dataclasses
-import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_port_testing import QUAD, TIE, V5
+from torch_port_testing import random_v as _random_v
 from c3sc_tpu import models as jm
 from c3sc_tpu.ops.pallas_dense import make_pallas_dense_backup
 from c3sc_tpu.solvers.dense import _precompute, make_dense_step, neighbor_values
@@ -23,14 +24,6 @@ from c3sc_tpu_torch.convert import value_from_npz
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.ops import dense_backup as db
 
-QUAD = dict(sigma_v=0.15, sigma_om=0.15)
-V5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                  "experiments", "artifacts", "quad_dense_v5.npz")
-TIE = 1e-5  # argmins may differ only where the two best rhs are this close (relative)
-
-
-def _random_v(shape, seed=0):
-    return np.random.default_rng(seed).uniform(0, 5, shape).astype(np.float32)
 
 
 def _quad5(v_kind):

@@ -7,12 +7,12 @@ without them: ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 """
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
 import torch
 
+from torch_port_testing import QUAD, TIE, V5, random_v
 from c3sc_tpu_torch import models as tm
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 from c3sc_tpu_torch.convert import value_from_npz
@@ -22,10 +22,6 @@ from c3sc_tpu_torch.solvers import dense_vi
 
 pytestmark = pytest.mark.cuda
 
-QUAD = dict(sigma_v=0.15, sigma_om=0.15)
-V5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                  "experiments", "artifacts", "quad_dense_v5.npz")
-TIE = 1e-5  # argmins may differ only where the two best rhs are this close (relative)
 
 
 @pytest.fixture
@@ -36,8 +32,7 @@ def cuda():
 
 
 def _random_v(shape, device):
-    v = np.random.default_rng(0).uniform(0, 5, shape).astype(np.float32)
-    return torch.as_tensor(v, device=device)
+    return torch.as_tensor(random_v(shape), device=device)
 
 
 @pytest.mark.parametrize("n", [5, 9])

@@ -5,7 +5,6 @@ Tolerance: rtol 1e-6 (a few float32 ulps, for the libraries' own sin/cos and
 summation order), with atol 1e-6 for values that are zero up to rounding.
 """
 
-import os
 import subprocess
 import sys
 
@@ -15,15 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_testing import QUAD, REPO, close, port_grid
 from c3sc_tpu import models as jm
 from c3sc_tpu.grids import Grid as JGrid
 from c3sc_tpu_torch import models as tm
-from c3sc_tpu_torch.convert import grid_from_numpy
 from c3sc_tpu_torch.grids import Grid
 
-PROBLEMS = [("quadcopter", dict(sigma_v=0.15, sigma_om=0.15)), ("pendulum", {}), ("lq", {})]
+PROBLEMS = [("quadcopter", QUAD), ("pendulum", {}), ("lq", {})]
 TOL = dict(rtol=1e-6, atol=1e-6)
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _pair(name, kw):
@@ -38,7 +36,7 @@ def _samples(prob, n=256, seed=0):
 
 
 def _close(got, want):
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+    close(got, want, **TOL)
 
 
 @pytest.mark.parametrize("name,kw", PROBLEMS)
@@ -117,7 +115,7 @@ def _grids():
 
 @pytest.mark.parametrize("jg", _grids(), ids=["uniform", "nonuniform"])
 def test_grid_queries_match_jax(jg):
-    tg = grid_from_numpy(jg.lb, jg.ub, jg.shape, jg.periodic, jg.nodes_override)
+    tg = port_grid(jg)
     assert tg == Grid(jg.lb, jg.ub, jg.shape, jg.periodic, jg.nodes_override)
     rng = np.random.default_rng(3)
     x = rng.uniform(np.array(jg.lb) - 1.0, np.array(jg.ub) + 1.0, (300, 2)).astype(np.float32)

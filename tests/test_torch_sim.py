@@ -6,7 +6,6 @@ Euler–Maruyama noise: JAX draws it inside its scan from
 it to the port's ``rollout(noise=...)``.
 """
 
-import os
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_testing import QUAD, V5
 from c3sc_tpu import models as jm
 from c3sc_tpu.ops.interp import multilinear_interp as jinterp
 from c3sc_tpu.sim import integrators as jint
@@ -25,9 +25,6 @@ from c3sc_tpu_torch.ops.interp import multilinear_interp
 from c3sc_tpu_torch.sim import (make_implicit_policy, q_values, rollout, trajectory_load,
                                 trajectory_save)
 
-QUAD = dict(sigma_v=0.15, sigma_om=0.15)
-V5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                  "experiments", "artifacts", "quad_dense_v5.npz")
 
 
 def _quad5():
