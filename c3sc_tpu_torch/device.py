@@ -26,6 +26,13 @@ def resolve_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait until a CUDA device has run all it was given (a no-op on the
+    CPU): the edge of a device-synced time."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 _CONSTANTS: dict = {}
 
 

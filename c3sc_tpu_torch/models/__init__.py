@@ -1,12 +1,14 @@
-"""Problem registry — the systems ported from ``c3sc_tpu/models`` so far.
+"""Problem registry — the systems ported from ``c3sc_tpu/models`` so far,
+and the problem families whose cost moves with a parameter theta
+(``make_lq_family``, ``make_quadcopter_family``).
 
 Dubins, the glider and the 7D quadcopter follow in later slices.
 """
 
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem, Obstacle
-from c3sc_tpu_torch.models.lq import lqr_solution, make_lq_problem
+from c3sc_tpu_torch.models.lq import lqr_solution, make_lq_family, make_lq_problem
 from c3sc_tpu_torch.models.pendulum import make_pendulum_problem
-from c3sc_tpu_torch.models.quadcopter import make_quadcopter_problem
+from c3sc_tpu_torch.models.quadcopter import make_quadcopter_family, make_quadcopter_problem
 
 REGISTRY = {
     "lq": make_lq_problem,
@@ -27,7 +29,9 @@ __all__ = [
     "REGISTRY",
     "make_problem",
     "make_lq_problem",
+    "make_lq_family",
     "lqr_solution",
     "make_pendulum_problem",
     "make_quadcopter_problem",
+    "make_quadcopter_family",
 ]

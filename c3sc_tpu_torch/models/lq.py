@@ -1,5 +1,6 @@
 """2D stochastic double-integrator LQ problem + analytic Riccati oracle —
-port of ``c3sc_tpu/models/lq.py`` (``make_lq_problem``, ``lqr_solution``).
+port of ``c3sc_tpu/models/lq.py`` (``make_lq_problem``, ``make_lq_family``,
+``lqr_solution``).
 
     dx1 = x2 dt
     dx2 = u dt + sigma dw
@@ -11,6 +12,8 @@ and u*(x) = -R^-1 B' P x.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -78,6 +81,51 @@ def make_lq_problem(
         cost_r=lambda u: _quad_form(u, R),
         beta=beta, name="lq",
     )
+
+
+def make_lq_family(
+    q: float = 1.0,
+    r: float = 1.0,
+    sigma: float = 1.0,
+    beta: float = 1.0,
+    xmax: float = 2.0,
+    umax: float = 6.0,
+):
+    """Setpoint-tracking LQ problem FAMILY: ``family(theta) ->
+    ControlProblem`` with stage cost (x - theta)' Q (x - theta) + u' R u.
+
+    theta [2] is read as a tensor at every call of the cost closures, never
+    turned into a float or a cached constant: a tensor theta on the solve's
+    device (a buffer that ``sim/tracking.py`` updates in place) changes the
+    cost without rebuilding anything. Other theta (numpy, lists) become a
+    float32 CPU tensor, copied to the states' device at each call.
+    """
+    Q = np.eye(2) * q
+    R = np.eye(1) * r
+    P, c, _ = lqr_solution(q=q, r=r, sigma=sigma, beta=beta)
+    base = make_lq_problem(q=q, r=r, sigma=sigma, beta=beta, xmax=xmax, umax=umax)
+
+    def family(theta):
+        theta = torch.as_tensor(theta, dtype=torch.float32)
+
+        def error(x):
+            # theta itself where it lives on x's device: a buffer written in
+            # place is read at every call
+            return x - theta.to(device=x.device, dtype=x.dtype)
+
+        def cost_q(x):
+            return _quad_form(error(x), Q)
+
+        def stage_cost(x, u):
+            return cost_q(x) + _quad_form(u, R)
+
+        def boundary_cost(x):
+            return _quad_form(error(x), P) + c
+
+        return dataclasses.replace(base, stage_cost=stage_cost, boundary_cost=boundary_cost,
+                                   cost_q=cost_q, name="lq_tracking")
+
+    return family
 
 
 def lqr_solution(q: float = 1.0, r: float = 1.0, sigma: float = 1.0, beta: float = 1.0):

@@ -1,5 +1,6 @@
 """Quadcopter: 6D planar-quadrotor stochastic hover — port of
-``c3sc_tpu/models/quadcopter.py::make_quadcopter_problem``.
+``c3sc_tpu/models/quadcopter.py::make_quadcopter_problem`` and
+``make_quadcopter_family``.
 
 State (x, z, th, vx, vz, om), controls (u1, u2) = rotor thrusts in [0, u_max]:
 
@@ -12,6 +13,8 @@ JAX package; every callable broadcasts over leading axes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -123,3 +126,39 @@ def _g_sup(w_pos, w_th, w_vel, w_om, w_u, pos_max, th_max, vel_max, om_max,
         w_pos * 2 * pos_max**2 + w_th * th_max**2 + w_vel * 2 * vel_max**2
         + w_om * om_max**2 + w_u * 2 * max(hover, u_max - hover) ** 2
     )
+
+
+def make_quadcopter_family(**kwargs):
+    """Moving-hover-target quadcopter FAMILY: ``family(theta) ->
+    ControlProblem`` where theta [2] = (x*, z*) is the hover target that the
+    position cost tracks. Every other term, and ``value_bounds``, is the base
+    problem's (``make_quadcopter_problem(**kwargs)``); the bound was derived
+    for a target at the origin and is kept as the JAX package keeps it.
+
+    theta is read as a tensor at every call of the cost closures, never
+    turned into a float or a cached constant (see ``models/lq.make_lq_family``).
+    """
+    base = make_quadcopter_problem(**kwargs)
+    w_pos = kwargs.get("w_pos", 2.0)
+    b_cost_q, b_stage = base.cost_q, base.stage_cost
+
+    def family(theta):
+        theta = torch.as_tensor(theta, dtype=torch.float32)
+
+        def moved(q, x):
+            # the origin-centred position term replaced by the target-centred
+            # one, in the JAX package's order of operations
+            th = theta.to(device=x.device, dtype=x.dtype)
+            return (q - w_pos * (x[..., 0] ** 2 + x[..., 1] ** 2)
+                    + w_pos * ((x[..., 0] - th[0]) ** 2 + (x[..., 1] - th[1]) ** 2))
+
+        def cost_q(x):
+            return moved(b_cost_q(x), x)
+
+        def stage_cost(x, u):
+            return moved(b_stage(x, u), x)
+
+        return dataclasses.replace(base, cost_q=cost_q, stage_cost=stage_cost,
+                                   name="quadcopter_tracking")
+
+    return family

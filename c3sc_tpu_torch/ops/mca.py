@@ -24,6 +24,20 @@ from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 _EPS = 1e-10
 
 
+# The kinks of the stencil carry the JAX package's derivatives, so that
+# gradients with respect to u (``solvers/ttvi.rhs_continuous``) match
+# ``jax.grad`` where a drift component is exactly 0 (LQ's u = 0 candidate,
+# the quadcopter's hover): d|f|/df = 1 there as for ``jnp.abs`` (torch.abs
+# gives 0), and d max(f, 0)/df = 1/2 as for ``jnp.maximum`` (torch.clamp
+# gives 1). The values are those of abs and clamp.
+def _abs(f):
+    return torch.where(f >= 0, f, -f)
+
+
+def _pos(f):
+    return torch.maximum(f, f.new_zeros(()))
+
+
 def transition(problem: ControlProblem, grid: Grid, x, u):
     """Stencil at states x [..., d] under controls u [..., du] (leading
     axes broadcast). Returns (p_plus [..., d], p_minus [..., d], dt [...]).
@@ -46,8 +60,8 @@ def _stencil_nonuniform(f, s2, hp, hm):
 
     Reduces to the uniform scheme when h+ == h-. Shapes broadcast.
     """
-    fp = torch.clamp(f, min=0.0)
-    fm = torch.clamp(-f, min=0.0)
+    fp = _pos(f)
+    fm = _pos(-f)
     qj = s2 / (hp * hm) + fp / hp + fm / hm
     q = torch.sum(qj, dim=-1, keepdim=True) + _EPS
     p_plus = (s2 / (hp * (hp + hm)) + fp / hp) / q
@@ -59,10 +73,10 @@ def _stencil_from_fs2(f, s2, h):
     """Elementwise uniform-grid stencil given drift f [..., d] and variance
     s2 (broadcastable to f). Returns (p_plus, p_minus, dt)."""
     diffpart = 0.5 * s2 / h**2
-    qj = 2.0 * diffpart + torch.abs(f) / h
+    qj = 2.0 * diffpart + _abs(f) / h
     q = torch.sum(qj, dim=-1, keepdim=True) + _EPS
-    p_plus = (diffpart + torch.clamp(f, min=0.0) / h) / q
-    p_minus = (diffpart + torch.clamp(-f, min=0.0) / h) / q
+    p_plus = (diffpart + _pos(f) / h) / q
+    p_minus = (diffpart + _pos(-f) / h) / q
     return p_plus, p_minus, 1.0 / q[..., 0]
 
 

@@ -22,8 +22,9 @@ import torch
 
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
-from c3sc_tpu_torch.ops.dense_backup import (  # noqa: F401  (neighbor_values re-exported)
-    dense_backup, dense_evaluate, make_dense_operands, neighbor_values)
+from c3sc_tpu_torch.ops.dense_backup import (dense_backup, dense_evaluate,
+                                             make_dense_operands, neighbor_values)
+from c3sc_tpu_torch.solvers.ttvi import refine_controls
 
 
 @dataclasses.dataclass
@@ -129,18 +130,24 @@ def dense_vi(
 
 
 def dense_policy(problem: ControlProblem, grid: Grid, v, controls, device=None,
-                 refine_steps: int = 0):
+                 refine_steps: int = 0, refine_method: str = "pgd"):
     """Greedy policy u*(node) = argmin_u Bellman RHS against a dense v.
 
     Returns u [*grid.shape, du] on ``device`` (None: the default CUDA
-    device). ``refine_steps > 0`` (continuous polishing
-    of the brute-force winner) needs ``solvers/ttvi.refine_controls``, which
-    is not ported yet.
+    device). The argmin is K1's improve sweep. ``refine_steps > 0`` polishes
+    the winner at every node with that many batched projected-gradient
+    (``refine_method='pgd'``) or L-BFGS (``'lbfgs'``) steps of the
+    continuous right-hand side under the control box.
     """
-    if refine_steps > 0:
-        raise NotImplementedError("dense_policy refine_steps > 0 needs "
-                                  "solvers/ttvi.refine_controls (not ported yet)")
     ops = make_dense_operands(problem, grid, controls, device)
     v = torch.as_tensor(v, dtype=torch.float32, device=ops.x.device).contiguous()
-    _, best = dense_backup(ops, v)
-    return ops.uc[best.long()].reshape(*grid.shape, problem.du)
+    f0, best = dense_backup(ops, v)
+    u = ops.uc[best.long()]
+    if refine_steps > 0:
+        # a dense v is already pinned at terminal nodes, so its neighbour
+        # values need no pinning; f0 (pinned there) only bounds the
+        # returned objective, which is not returned
+        vp, vm = neighbor_values(v.reshape(grid.shape), grid)
+        u, _ = refine_controls(problem, grid, ops.x, torch.stack([vp, vm], dim=1), u,
+                               f0.reshape(-1), refine_steps, refine_method)
+    return u.reshape(*grid.shape, problem.du)

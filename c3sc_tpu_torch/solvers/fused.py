@@ -23,9 +23,14 @@ with ``check_errors=False``; ``qr`` and ``slogdet`` check nothing). The one
 call without such a form, ``svdvals``, is replaced on CUDA by a count that
 needs none (``_needed_rank_sync_free``).
 
+``step_fn(carry, n)`` runs exactly n iterations whatever the stopping state,
+as the warm replans of MPC and tracking need. Under ``cuda_graph=True`` it
+replays the same captured iteration as ``run_fn``, with a flag on the device
+that forces it active.
+
 Not ported yet (each raises ``NotImplementedError``): ``oversample > 0``
-(rectangular maxvol), ``base=`` and ``fused_tt_vi_refined``, ``refine_steps
-> 0``, ``mesh=``, ``checkpoint_path`` / ``resume_from``, ``_cholqr2``.
+(rectangular maxvol), ``base=`` and ``fused_tt_vi_refined``, ``mesh=``,
+``checkpoint_path`` / ``resume_from``, ``_cholqr2``.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ from c3sc_tpu_torch.device import const_tensor, resolve_device
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
+from c3sc_tpu_torch.ops.argmin import first_argmin
 from c3sc_tpu_torch.ops.tt import TT, _concrete_ranks, _repad, tt_gather_eval, tt_lerp_eval
+from c3sc_tpu_torch.solvers.ttvi import check_refine_method, refine_controls
 
 
 class FusedSolver(NamedTuple):
@@ -51,7 +58,8 @@ class FusedSolver(NamedTuple):
     solve_fn(carry) -> carry         run to convergence (chunks of ``window``
                                      masked iterations, one host read a chunk)
     init_fn(seed, v0=None) -> carry  fresh solver state
-    step_fn(carry, n) -> carry       exactly n iterations (benches)
+    step_fn(carry, n) -> carry       exactly n iterations, whatever the stopping
+                                     state (benches, warm replans)
     run_fn(carry, n) -> carry        up to n iterations, enqueued blind; stops
                                      on the SAME conditions as solve_fn
     """
@@ -460,10 +468,13 @@ def _scrub(val, vb):
 
 
 def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
-                      dtype=torch.float32, debug_identity: bool = False):
+                      dtype=torch.float32, debug_identity: bool = False,
+                      refine_steps: int = 0, refine_method: str = "pgd"):
     """Block K2 of a core-step: the Bellman backup on the structured fiber
     block of core k. ``uc [C, du]`` is the candidate set as a tensor on the
-    solve's device.
+    solve's device. ``refine_steps > 0`` polishes every node's brute-force
+    winner with that many continuous steps (``solvers/ttvi.refine_controls``)
+    after the min, before the clip and the pin.
 
     Returns fn(cores, ranks, k, left_k [R, d], right_k1 [R, d]) -> [R, n_k, R]:
     the backed-up value at every node of I_k x grid_k x J_{k+1}, with terminal
@@ -522,6 +533,10 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
             expect = torch.sum(pp * vn[None, :, 0] + pm * vn[None, :, 1], dim=-1)
             rhs = g * dtt + torch.exp(-problem.beta * dtt) * expect
             val = torch.min(rhs, dim=0).values
+            if refine_steps > 0:
+                u0 = uc[first_argmin(rhs, 0)]                            # [B, du]
+                _, val = refine_controls(problem, grid, x, vn, u0, val, refine_steps,
+                                         refine_method)
             if vb is not None:
                 val = torch.clamp(val, vb[0], vb[1])
             tm, tv = mca.node_terminal(problem, grid, flat_idx, x)
@@ -594,6 +609,11 @@ def make_fused_vi(
     it (CUDA devices only, ``probe_rollouts == 0``). The capture happens at
     the first ``run_fn``/``step_fn`` call; if a call inside the iteration
     refuses capture, that raises — nothing switches back to the eager loop.
+    ``run_fn`` and ``step_fn`` share the one capture (and its memory pool).
+
+    ``refine_steps > 0``: the fiber backup polishes every node's candidate
+    winner with that many continuous steps, ``refine_method`` 'pgd' or
+    'lbfgs' (see ``make_fiber_backup``).
 
     Stopping (any of):
       - per-iteration sample residual < tol;
@@ -611,20 +631,18 @@ def make_fused_vi(
     loop is active the device count advances by one per iteration, and once
     it is inactive every result is discarded), so no iteration reads it.
 
-    Not ported yet: ``oversample > 0``, ``base=``, ``refine_steps > 0``,
-    ``mesh=``.
+    Not ported yet: ``oversample > 0``, ``base=``, ``mesh=``.
     """
     if oversample > 0:
         _not_ported("oversample > 0", "the rectangular-maxvol scheme "
                     "(_interp_from_rows_ls, _extend_rows)")
     if base is not None:
         _not_ported("base= (residual solves)", "fused_tt_vi_refined and tt_add at growing padding")
-    if refine_steps > 0:
-        _not_ported("refine_steps > 0", "ops/argmin.py and solvers/ttvi.refine_controls")
     if mesh is not None:
         _not_ported("mesh=", "a multi-GPU fiber sharding (parallel/)")
     if target_mode not in ("self", "frozen"):
         raise ValueError(f"target_mode must be 'self' or 'frozen', got {target_mode!r}")
+    check_refine_method(refine_method)
     device = resolve_device(device)
     if sync_free is None:
         sync_free = device.type == "cuda"
@@ -685,7 +703,8 @@ def make_fused_vi(
                             noise=probe_noise, policy_every=2)
             return traj.cost.mean().to(dtype)
 
-    _eval_fibers = make_fiber_backup(problem, grid, uc, R, dtype, debug_identity)
+    _eval_fibers = make_fiber_backup(problem, grid, uc, R, dtype, debug_identity,
+                                     refine_steps, refine_method)
 
     def fit_core(qe, rows_prev, r_new, r_prev_fit, in_warmup, frozen):
         """Pivot rows + core of the square scheme."""
@@ -972,11 +991,12 @@ def make_fused_vi(
             & (c.wstall < torch.where(c.frozen, frozen_patience, patience))
         )
 
-    def masked_iteration(carry: FusedCarry, limit, probe_now: bool = False) -> FusedCarry:
+    def masked_iteration(carry: FusedCarry, limit, force, probe_now: bool = False) -> FusedCarry:
         """One iteration of ``while cond(c) & (c.it < limit)``: every field
         of the new carry where the loop is still active, the old one where
-        it is not."""
-        active = cond(carry) & (carry.it < limit)
+        it is not. ``force`` (a 0-d bool tensor) makes it active whatever
+        the condition: ``step_fn``'s iteration in the shared CUDA graph."""
+        active = force | (cond(carry) & (carry.it < limit))
         new = body(carry, probe_now)
         return _tree_map2(lambda a, b: torch.where(active, a, b), new, carry)
 
@@ -998,17 +1018,18 @@ def make_fused_vi(
         per-window metrics."""
         limit = carry.it + n_iters
         if cuda_graph:
-            return _graphed_iteration()(carry, limit, n_iters)
+            return _graphed_iteration()(carry, limit, n_iters, force=False)
         it0 = _host_it(carry)
+        off = torch.zeros((), dtype=torch.bool, device=device)
         for j in range(n_iters):
-            carry = masked_iteration(carry, limit, (it0 + j + 1) % window == 0)
+            carry = masked_iteration(carry, limit, off, (it0 + j + 1) % window == 0)
         return carry
 
     @torch.no_grad()
     def step_fn(carry: FusedCarry, n_iters: int = 1) -> FusedCarry:
         """Exactly n_iters iterations, whatever the stopping state."""
         if cuda_graph:
-            raise ValueError("step_fn runs the eager body; with cuda_graph=True use run_fn")
+            return _graphed_iteration()(carry, carry.it, n_iters, force=True)
         it0 = _host_it(carry)
         for j in range(n_iters):
             carry = body(carry, (it0 + j + 1) % window == 0)
@@ -1036,7 +1057,14 @@ def _tree_map2(fn, a: FusedCarry, b: FusedCarry) -> FusedCarry:
 class _GraphedIteration:
     """One masked iteration captured as a CUDA graph on static buffers, with
     the copy of its result back into its input inside the capture; a chunk
-    is then one copy in, ``n`` replays and one copy out."""
+    is then one copy in, ``n`` replays and one copy out. The static
+    ``force`` flag on the device makes the replayed iteration active
+    whatever the loop condition (``step_fn``).
+
+    ``_GraphedIteration.captures`` counts the captures made in this process
+    (a solver captures once, at its first graphed call)."""
+
+    captures = 0
 
     def __init__(self, iteration, device):
         self.iteration, self.device = iteration, device
@@ -1045,21 +1073,24 @@ class _GraphedIteration:
     def _capture(self, carry, limit):
         self.static = _tree_map2(lambda a, _: a.clone(), carry, carry)
         self.limit = limit.clone()
+        self.force = torch.zeros((), dtype=torch.bool, device=self.device)
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):       # warm up off the capture, on scratch copies
-            self.iteration(self.static, self.limit)
+            self.iteration(self.static, self.limit, self.force)
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            new = self.iteration(self.static, self.limit)
+            new = self.iteration(self.static, self.limit, self.force)
             _tree_map2(lambda dst, src: dst.copy_(src), self.static, new)
+        _GraphedIteration.captures += 1
 
-    def __call__(self, carry, limit, n_iters):
+    def __call__(self, carry, limit, n_iters, force: bool):
         if self.graph is None:
             self._capture(carry, limit)
         _tree_map2(lambda dst, src: dst.copy_(src), self.static, carry)
         self.limit.copy_(limit)
+        self.force.fill_(force)
         for _ in range(n_iters):
             self.graph.replay()
         return _tree_map2(lambda a, _: a.clone(), self.static, self.static)
@@ -1170,8 +1201,8 @@ def fused_tt_vi(
     continues. Steps are small and additive: caps far beyond the problem's
     epsilon-rank fit f32 noise columns and churn as badly as starved ones.
 
-    Not ported yet: ``mesh=``, ``refine_steps > 0``, ``base=``,
-    ``oversample > 0``, ``checkpoint_path`` / ``resume_from``.
+    Not ported yet: ``mesh=``, ``base=``, ``oversample > 0``,
+    ``checkpoint_path`` / ``resume_from``.
     """
     if checkpoint_path is not None or resume_from is not None:
         _not_ported("checkpoint_path / resume_from", "utils/checkpoint.py")
@@ -1390,5 +1421,4 @@ def fused_tt_vi(
 
 def fused_tt_vi_refined(*args, **kwargs):
     """Residual-corrected fused VI (iterative refinement over ``base=``)."""
-    _not_ported("fused_tt_vi_refined", "base= in make_fused_vi and "
-                "solvers/ttvi.bellman_residual_sample")
+    _not_ported("fused_tt_vi_refined", "base= in make_fused_vi (the accuracy stack)")

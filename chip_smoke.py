@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the c3sc_tpu_torch dense Bellman path and the fused TT value
-iteration once on one NVIDIA GPU.
+"""Drive the c3sc_tpu_torch dense Bellman path, the fused TT value
+iteration and the receding-horizon control path once on one NVIDIA GPU.
 
     python3 chip_smoke.py              every phase
-    python3 chip_smoke.py --phases F   phases A, B and F only (while developing)
+    python3 chip_smoke.py --phases F   phases A, B, D at 9^6 and F (while developing)
+    python3 chip_smoke.py --phases G   phases A, B, D at 9^6 and G (while developing)
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -29,13 +30,30 @@ non-zero, with no result line):
          900 iterations) against phase D's dense solve: interior q95 of
          |v_tt - v_dense| / range <= 0.25; then the probe harvest at a small depth
      F.3 the bench configuration at full width: 31^6, rmax 16 and 32, tol 0:
-         ms/iteration over 200 iterations, active backups/s, warm 3-iteration
-         replan, for the eager loop and for the CUDA graph of one iteration
+         ms/iteration over 50 (eager loop) and 200 (CUDA graph of one
+         iteration) iterations, active backups/s, warm 3-iteration replan
      F.4 torch.profiler over 10 warm iterations at 31^6 rmax 16: device-busy
          time, idle share, and the device time and launches of the two blocks
          of a core-step (fiber_backup, core_fit); no host sync inside the window
      F.5 phase E's rollouts on the TT value of F.2 through tt_lerp_eval
-Then one JSON line of the kernels, and as the last line
+  G  the control path: continuous refinement, fused MPC, tracking re-solves
+     G.1 refinement (refine_steps=2): (a) dense_policy on D's 9^6 value, its
+         argmin through K1; every node's refined RHS at most its candidate's;
+         (b) phase E's rollouts under the refined implicit policy; (d) F.2's
+         9^6 solve refined under the CUDA graph, interior q95 <= 0.25; (c) one
+         refined fiber backup per core, card against CPU within 1e-4 x max|v|
+     G.2 fused MPC at bench.py's configuration (31^6, rmax 16, 25 candidates,
+         6 replans of 3 iterations, 256 rollouts x 25 steps each; the cold
+         solve cut from 800 to 400 iterations): graphed step_fn against
+         eager, then every warm replan's latency; median under the 25 x
+         0.01 s real-time budget
+     G.3 tracking at bench.py's configuration (moving hover target, 9^6,
+         rmax 16): median 10-iteration cost-update latency; the re-solve at a
+         moved target against dense_vi there (K1), q95 <= 0.25 and below the
+         stale value's; tracking against stale closed loops; one build and one
+         graph capture across every cost update
+K1's launch counts start at 0 before D and are read after G (D and E, and
+G, must each launch both entries). Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -60,6 +78,7 @@ TIE_BAR = 1e-5       # argmins may differ where the two best rhs are this close
 SOLVE_BAR = 5e-3     # max |v - stored v| after dense_vi (value range ~98)
 PARITY_BAR = 1e-4    # card against CPU on values, relative to max|v| (phase F.1)
 FUSED_Q95_BAR = 0.25  # interior q95 of |v_tt - v_dense| / (max - min of v_dense), 9^6 rmax 16
+MPC_BUDGET_S = 25 * 0.01   # real time: a warm replan within the 25 x 0.01 s it plans for
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -347,6 +366,7 @@ def phase_e_rollouts(v9, n_rollouts=256, n_steps=400, dt=0.01):
     if abs(c_p - c_s) > 0.01 * abs(c_s) or abs(s_p - s_s) > 0.02:
         raise AssertionError(f"rollouts disagree: cost {c_p:.4f} vs {c_s:.4f}, "
                              f"survival {s_p:.4f} vs {s_s:.4f}")
+    return c_p
 
 
 def _quad_fused(n, rmax, device, **kw):
@@ -452,11 +472,24 @@ def phase_f1c_converging_solve(n=31, rmax=16):
         raise AssertionError(f"fused pendulum solve on the card: sup error {err:.4f} >= 0.03")
 
 
-def phase_f2_solve(v_dense, n=9, rmax=16):
-    """The 9^6 fused solve against the dense solve, then the probe path."""
-    from c3sc_tpu_torch.models import make_problem
+def interior_q95(prob, grid, v_tt, v_dense):
+    """(interior q95, max) of |v_tt - v_dense| / (max - min of v_dense) at the
+    nodes, interior: off the absorbing faces. v_tt: a TT on the grid."""
     from c3sc_tpu_torch.models.base import Boundary
     from c3sc_tpu_torch.ops.tt import tt_gather_eval
+
+    v = tt_gather_eval(v_tt, grid.node_indices(DEVICE)).reshape(grid.shape)
+    if not torch.isfinite(v).all():
+        raise AssertionError("a TT value is not finite")
+    rel = (v.double() - v_dense.double()).abs() / (v_dense.max() - v_dense.min()).double()
+    sl = tuple(slice(1, -1) if b == Boundary.ABSORB else slice(None) for b in prob.boundary)
+    return torch.quantile(rel[sl].reshape(-1).float(), 0.95).item(), rel.max().item()
+
+
+def phase_f2_solve(v_dense, n=9, rmax=16):
+    """The 9^6 fused solve against the dense solve, then the probe path.
+    Returns the solution and its interior q95."""
+    from c3sc_tpu_torch.models import make_problem
     from c3sc_tpu_torch.solvers import fused_tt_vi
 
     prob = make_problem("quadcopter", **QUAD)
@@ -465,20 +498,16 @@ def phase_f2_solve(v_dense, n=9, rmax=16):
     sol = fused_tt_vi(prob, grid, controls=controls, rmax=rmax, seed=0, tol=2e-4,
                       max_iters=900, patience=25, probe_rollouts=0, device=DEVICE,
                       cuda_graph=True)
-    v_tt = tt_gather_eval(sol.v, grid.node_indices(DEVICE)).reshape(grid.shape)
     vrange = (v_dense.max() - v_dense.min()).item()
-    rel = (v_tt.double() - v_dense.double()).abs() / vrange
-    sl = tuple(slice(1, -1) if b == Boundary.ABSORB else slice(None) for b in prob.boundary)
-    q95 = torch.quantile(rel[sl].reshape(-1).float(), 0.95).item()
+    q95, rmax_rel = interior_q95(prob, grid, sol.v, v_dense)
     log(f"[F.2] fused_tt_vi quadcopter {n}^6 rmax {rmax} (CUDA graph of an iteration): "
         f"{sol.iterations} iterations, "
         f"residual {sol.residual:.3e}, ranks {sol.v.ranks.tolist()}, wall {sol.wall_time:.2f} s "
         f"({1e3 * sol.wall_time / max(sol.iterations, 1):.2f} ms/iteration); vs dense_vi "
-        f"(range {vrange:.2f}): max rel {rel.max().item():.4f}, interior q95 {q95:.4f} "
+        f"(range {vrange:.2f}): max rel {rmax_rel:.4f}, interior q95 {q95:.4f} "
         f"(bar {FUSED_Q95_BAR})")
-    if not torch.isfinite(v_tt).all() or not q95 <= FUSED_Q95_BAR:
-        raise AssertionError(f"fused {n}^6 solve: interior q95 {q95:.4f} > {FUSED_Q95_BAR} "
-                             "or a value is not finite")
+    if not q95 <= FUSED_Q95_BAR:
+        raise AssertionError(f"fused {n}^6 solve: interior q95 {q95:.4f} > {FUSED_Q95_BAR}")
     probe = fused_tt_vi(prob, grid, controls=controls, rmax=rmax, seed=0, tol=2e-4,
                         max_iters=100, patience=25, probe_rollouts=8, probe_steps=50,
                         device=DEVICE)
@@ -486,11 +515,13 @@ def phase_f2_solve(v_dense, n=9, rmax=16):
         f"{probe.probe_cost:.4f}, wall {probe.wall_time:.2f} s")
     if not np.isfinite(probe.probe_cost):
         raise AssertionError("the probe path left no finite probe_cost")
-    return sol
+    return sol, q95
 
 
-def phase_f3_bench(n=31, reps=200, warmup=30):
-    """The bench configuration: default quadcopter, 31^6, 25 candidates, tol 0."""
+def phase_f3_bench(n=31, reps=200, eager_reps=50, warmup=30):
+    """The bench configuration: default quadcopter, 31^6, 25 candidates, tol 0.
+    The eager loop is timed over ``eager_reps`` iterations (its rate is the
+    host's launch rate, 0.1-0.25 s an iteration), the graph over ``reps``."""
     carries = {}
     for rmax in (16, 32):
         prob, grid, solver = _quad_fused(n, rmax, DEVICE, problem_kw={}, tol=0.0,
@@ -499,7 +530,7 @@ def phase_f3_bench(n=31, reps=200, warmup=30):
         torch.cuda.synchronize()
         ranks_pre = carry.ranks.clone()
         t0 = time.perf_counter()
-        carry = solver.step_fn(carry, reps)
+        carry = solver.step_fn(carry, eager_reps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steady = bool(torch.equal(carry.ranks, ranks_pre))
@@ -515,9 +546,9 @@ def phase_f3_bench(n=31, reps=200, warmup=30):
             carry = solver.step_fn(carry, 3)
             torch.cuda.synchronize()
             lat.append(1e3 * (time.perf_counter() - t1))
-        log(f"[F.3] quadcopter {n}^6 rmax {rmax}, eager loop: {1e3 * wall / reps:.3f} ms/iteration "
-            f"over {reps} iterations, {per_iter} active backups/iteration, "
-            f"{per_iter * reps / wall:.4e} backups/s, ranks {carry.ranks.tolist()} held still "
+        log(f"[F.3] quadcopter {n}^6 rmax {rmax}, eager loop: {1e3 * wall / eager_reps:.3f} "
+            f"ms/iteration over {eager_reps} iterations, {per_iter} active backups/iteration, "
+            f"{per_iter * eager_reps / wall:.4e} backups/s, ranks {carry.ranks.tolist()} held still "
             f"{steady}, warm 3-iteration replan median {float(np.median(lat)):.3f} ms")
         if not torch.isfinite(carry.v_sample).all():
             raise AssertionError(f"{n}^6 rmax {rmax}: the sample values are not finite")
@@ -547,16 +578,19 @@ def phase_f3_bench(n=31, reps=200, warmup=30):
     return carries
 
 
-SYNC_NAMES = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
-              "aten::item", "aten::_local_scalar_dense")
+# the runtime calls in which the host waits for the device: reading a CUDA
+# tensor on the host (``.item()``) and a pageable upload both end in one
+SYNC_NAMES = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 BLOCKS = ("fiber_backup", "core_fit")
 
 
-def profile_iterations(solver, carry, iters=10, label=""):
+def profile_iterations(solver, carry, iters=10, label="", tag="F.4"):
     """torch.profiler over ``iters`` warm iterations: wall, device-busy time and
     idle share of the window; device time and launches under the two
     ``record_function`` ranges of a core-step; the host syncs inside the
-    window (there must be none)."""
+    window (there must be none). ``.item()`` of a CPU tensor (a Python float
+    written into a CUDA tensor goes through one) waits for nothing and is
+    counted apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -593,13 +627,16 @@ def profile_iterations(solver, carry, iters=10, label=""):
 
     dev_ms = {name: 0.0 for name in BLOCKS + ("other",)}
     launches = {name: 0 for name in BLOCKS + ("other",)}
-    syncs = {}
+    syncs, host_reads = {}, {}
     for e in events:
         if e.device_type != DeviceType.CPU or not (w0 <= e.time_range.start <= w1):
             continue
         if e.name in SYNC_NAMES:
             key = f"{e.name} in {op_above(e)}"
             syncs[key] = syncs.get(key, 0) + 1
+        elif e.name == "aten::_local_scalar_dense":
+            key = op_above(e)
+            host_reads[key] = host_reads.get(key, 0) + 1
         for k in e.kernels:
             b = block_of(e.time_range.start)
             dev_ms[b] += k.duration / 1e3
@@ -609,17 +646,18 @@ def profile_iterations(solver, carry, iters=10, label=""):
         raise RuntimeError("torch.profiler recorded no device time")
     top = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
                   for e in prof.key_averages()), reverse=True)[:6]
-    log(f"[F.4] {label}: {iters} warm iterations under torch.profiler: wall {wall:.2f} ms "
+    log(f"[{tag}] {label}: {iters} warm iterations under torch.profiler: wall {wall:.2f} ms "
         f"({wall / iters:.3f} ms/iteration; host done enqueuing at {enqueued:.2f} ms), device "
         f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}")
     for name in BLOCKS + ("other",):
-        log(f"[F.4]   {name}: device {dev_ms[name] / iters:.3f} ms/iteration in "
+        log(f"[{tag}]   {name}: device {dev_ms[name] / iters:.3f} ms/iteration in "
             f"{launches[name] / iters:.0f} launches/iteration")
     for ms, count, key in top:
-        log(f"[F.4]   {ms / iters:.4f} ms/iteration in {count / iters:.0f} launches/iteration: "
+        log(f"[{tag}]   {ms / iters:.4f} ms/iteration in {count / iters:.0f} launches/iteration: "
             f"{key[:80]}")
-    log(f"[F.4]   host syncs inside the window, by the aten op they sit in: "
-        f"{syncs if syncs else 'none'}")
+    log(f"[{tag}]   host syncs inside the window, by the aten op they sit in: "
+        f"{syncs if syncs else 'none'}; scalar reads (_local_scalar_dense), by op: "
+        f"{host_reads or 'none'}")
     if syncs:
         raise AssertionError(f"an iteration reads the device on the host: {syncs}")
     return dict(wall_ms=wall / iters, busy_ms=busy / iters, idle=1 - busy / wall,
@@ -652,12 +690,242 @@ def phase_f5_rollouts(sol, n_rollouts=256, n_steps=400, dt=0.01):
 
 
 def phase_f_fused(v9):
+    """Phase F; returns F.2's interior q95."""
     phase_f1_device_parity()
     phase_f1c_converging_solve()
-    sol = phase_f2_solve(v9)
+    sol, q95 = phase_f2_solve(v9)
     carries = phase_f3_bench()
     profile_iterations(*carries[16], label="quadcopter 31^6 rmax 16")
     phase_f5_rollouts(sol)
+    return q95
+
+
+def _synced_s(fn):
+    """(result, seconds) of fn() between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_g1_refinement(v9, e_cost=None, f2_q95=None, n_rollouts=256, n_steps=400, dt=0.01):
+    """G.1: continuous control refinement on the card: (a) the refined dense
+    policy through K1, (b) rollouts under the refined implicit policy, (d)
+    the refined fused 9^6 solve under the CUDA graph, (c) one refined fiber
+    backup block, card against CPU, on (d)'s carry."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.dense_backup import make_dense_operands, neighbor_values
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+    from c3sc_tpu_torch.solvers import dense_policy, fused_tt_vi, rhs_continuous
+    from c3sc_tpu_torch.solvers import fused as tf
+
+    prob = make_problem("quadcopter", **QUAD)
+    grid = prob.default_grid(tuple(v9.shape))
+    n = grid.shape[0]
+    uc_np = prob.control_candidates(5)
+    uc = torch.as_tensor(uc_np, dtype=torch.float32, device=DEVICE)
+
+    # (a) the refined dense policy: every node's RHS at most its candidate's
+    brute = dense_policy(prob, grid, v9, uc_np, device=DEVICE).reshape(-1, prob.du)
+    walls = []
+    for _ in range(2):      # the first call in the process, then a warm one
+        refined, wall = _synced_s(lambda: dense_policy(prob, grid, v9, uc_np, device=DEVICE,
+                                                       refine_steps=2))
+        walls.append(wall)
+    refined = refined.reshape(-1, prob.du)
+    ops = make_dense_operands(prob, grid, uc_np, DEVICE)
+    vp, vm = neighbor_values(v9, grid)
+    f = rhs_continuous(prob, grid, ops.x, torch.stack([vp, vm], dim=1))
+    with torch.no_grad():
+        f_ref, f_brute = f(refined), f(brute)
+    above = int((f_ref > f_brute).sum())
+    moved = (refined != brute).any(-1).float().mean().item()
+    log(f"[G.1a] dense_policy(refine_steps=2) quadcopter {n}^6 ({v9.numel()} nodes, argmin by "
+        f"K1): wall {walls[0]:.3f} s first call, {walls[1]:.3f} s warm, controls moved at "
+        f"{100 * moved:.2f}% of the nodes, mean RHS "
+        f"{f_brute.mean().item():.4f} -> {f_ref.mean().item():.4f}, nodes whose refined RHS "
+        f"exceeds the candidate's: {above}")
+    if above or not torch.isfinite(refined).all():
+        raise AssertionError(f"refined dense policy: {above} nodes above their candidate's RHS")
+
+    # (b) phase E's rollouts under the refined implicit policy
+    x0, noise = _rollout_inputs(prob, n_rollouts, n_steps)
+    costs = {}
+    for steps in (0, 2):
+        if steps == 0 and e_cost is not None:
+            costs[0] = e_cost
+            continue
+        policy = make_implicit_policy(prob, grid, lambda p: multilinear_interp(grid, v9, p), uc,
+                                      refine_steps=steps)
+        with torch.no_grad():
+            traj, wall = _synced_s(lambda: rollout(prob, grid, policy, x0, dt, n_steps,
+                                                   noise=noise))
+        if not (torch.isfinite(traj.cost).all() and torch.isfinite(traj.xs).all()):
+            raise AssertionError(f"rollouts under refine_steps={steps}: not finite")
+        costs[steps] = traj.cost.mean().item()
+    log(f"[G.1b] rollouts {n_rollouts} x {n_steps} steps dt {dt} on the dense {n}^6 value, "
+        f"implicit policy refine_steps=2: mean cost {costs[2]:.4f} against {costs[0]:.4f} "
+        f"unrefined (phase E), survival {100 * traj.alive[-1].float().mean().item():.2f}%, "
+        f"wall {wall:.2f} s")
+
+    # (d) the refined fused solve, F.2's configuration under the graph
+    sol = fused_tt_vi(prob, grid, controls=uc_np, rmax=16, seed=0, tol=2e-4, max_iters=900,
+                      patience=25, device=DEVICE, cuda_graph=True, refine_steps=2)
+    q95, rel_max = interior_q95(prob, grid, sol.v, v9)
+    f2 = f"{f2_q95:.4f}" if f2_q95 is not None else "not run (phase F skipped)"
+    log(f"[G.1d] fused_tt_vi quadcopter {n}^6 rmax 16 refine_steps=2 (CUDA graph): "
+        f"{sol.iterations} iterations, residual {sol.residual:.3e}, wall {sol.wall_time:.2f} s "
+        f"({1e3 * sol.wall_time / max(sol.iterations, 1):.2f} ms/iteration); vs dense_vi: "
+        f"interior q95 {q95:.4f} (bar {FUSED_Q95_BAR}; F.2 refine 0: {f2}), max rel {rel_max:.4f}")
+    if not q95 <= FUSED_Q95_BAR:
+        raise AssertionError(f"refined fused {n}^6 solve: interior q95 {q95:.4f}")
+
+    # (c) one refined fiber-backup block per core, card against CPU, on (d)'s carry
+    c = sol.carry
+    worst, vmax = 0.0, 0.0
+    for k in range(prob.dx):
+        out = {}
+        for dev in ("cpu", DEVICE):
+            backup = tf.make_fiber_backup(prob, grid, uc.to(dev), 16, refine_steps=2)
+            out[dev] = backup(tuple(t.to(dev) for t in c.cores), c.ranks.to(dev), k,
+                              c.left[k].to(dev), c.right[k + 1].to(dev)).cpu()
+        vmax = max(vmax, out["cpu"].abs().max().item())
+        worst = max(worst, (out["cpu"] - out[DEVICE]).abs().max().item())
+    log(f"[G.1c] refined fiber backup (refine_steps=2), all {prob.dx} cores on the solved "
+        f"carry, cuda vs cpu: max|diff| / max|v| {worst / vmax:.3e} (bar {PARITY_BAR})")
+    if worst > PARITY_BAR * vmax:
+        raise AssertionError("the refined fiber backup differs on the card")
+    # where a refined iteration's device time goes (eager, so the profiler
+    # sees the two blocks), and that the refinement reads nothing on the host
+    _, _, eager = _quad_fused(n, 16, DEVICE, tol=0.0, max_iters=10**9, refine_steps=2)
+    profile_iterations(eager, c, iters=5, label=f"refined fused iteration, quadcopter {n}^6 "
+                       "rmax 16", tag="G.1d")
+
+
+def phase_g2_mpc(n=31, rmax=16, n_rollouts=256, n_replans=6, steps=25, dt=0.01,
+                 first_solve_iters=400):
+    """G.2: fused MPC at the bench's configuration (bench.py:38-106), with
+    the cold solve cut from the bench's 800 iterations to 400 to keep the
+    script within its time (F.3 finds the ranks saturated at 16 after 30)."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.sim import fused_mpc_run
+
+    # the graphed step_fn against the eager one, 3 iterations from one carry
+    prob, grid, eager = _quad_fused(n, rmax, DEVICE, problem_kw={}, tol=0.0, max_iters=10**9)
+    _, _, graphed = _quad_fused(n, rmax, DEVICE, problem_kw={}, tol=0.0, max_iters=10**9,
+                                cuda_graph=True)
+    carry = eager.step_fn(eager.init_fn(0), 20)
+    same = (graphed.step_fn(carry, 3).v_sample - eager.step_fn(carry, 3).v_sample).abs().max()
+    log(f"[G.2] quadcopter {n}^6 rmax {rmax}: 3 iterations of step_fn, CUDA graph vs eager, "
+        f"from one carry: max|dv_sample| {same.item():.3e} (bar {PARITY_BAR * 100})")
+    if not same.item() <= PARITY_BAR * 100.0:
+        raise AssertionError("the graphed step_fn differs from the eager one")
+    del eager, graphed, carry
+    torch.cuda.empty_cache()
+
+    prob = make_problem("quadcopter")
+    x0, _ = _rollout_inputs(prob, n_rollouts, 1)
+    res = fused_mpc_run(prob, prob.default_grid(n), x0, dt=dt, steps_per_replan=steps,
+                        n_replans=n_replans, controls=prob.control_candidates(5), rmax=rmax,
+                        refine_iters=3, first_solve_iters=first_solve_iters, seed=0,
+                        device=DEVICE)
+    warm = res.replan_latency[1:]
+    med = float(np.median(warm))
+    log(f"[G.2] fused_mpc_run quadcopter {n}^6 rmax {rmax}, 25 candidates: cold solve "
+        f"{first_solve_iters} iterations in {res.solve_s:.2f} s (capture included); warm "
+        f"3-iteration replans (ms) {[round(1e3 * t, 2) for t in warm]}, median "
+        f"{1e3 * med:.2f} ms (budget {1e3 * MPC_BUDGET_S:.0f} ms); {n_rollouts} rollouts x "
+        f"{n_replans} x {steps} steps: mean cost {res.cost.mean().item():.4f}, residuals "
+        f"{[f'{r:.2e}' for r in res.residuals]}")
+    if not (med < MPC_BUDGET_S and torch.isfinite(res.cost).all()
+            and tuple(res.xs.shape) == (1 + n_replans * steps, n_rollouts, prob.dx)):
+        raise AssertionError(f"fused MPC: median replan {med:.3f} s or costs not finite")
+
+
+def phase_g3_tracking(n=9, rmax=16, n_rollouts=256):
+    """G.3: tracking re-solves at bench.py:207-228's configuration, then the
+    re-solve at a moved target against a dense solve there, then the closed
+    loop against the stale-value ablation."""
+    from c3sc_tpu_torch.models import make_quadcopter_family
+    from c3sc_tpu_torch.ops.tt import TT
+    from c3sc_tpu_torch.sim import tracking
+    from c3sc_tpu_torch.solvers import bellman_residual_sample, dense_vi
+    from c3sc_tpu_torch.solvers import fused as tf
+
+    family = make_quadcopter_family(**QUAD)
+    prob0 = family(np.zeros(2))
+    grid = prob0.default_grid(n)
+    controls = prob0.control_candidates(5)
+    builds, real = [], tracking.make_fused_vi
+
+    def counting(*args, **kwargs):
+        builds.append(1)
+        return real(*args, **kwargs)
+
+    captures = tf._GraphedIteration.captures
+    tracking.make_fused_vi = counting
+    try:
+        solver = tracking.make_tracking_solver(family, grid, controls, rmax=rmax,
+                                               solver_kwargs={"sample_size": 256}, device=DEVICE)
+    finally:
+        tracking.make_fused_vi = real
+    carry, t_init = _synced_s(lambda: solver.init(np.zeros(2), 0, 300))
+    carry = solver.update(carry, np.array([0.3, 0.1]), 10)
+    lat = []
+    for i in range(5):
+        carry, t = _synced_s(lambda: solver.update(carry, np.array([0.1 * i - 0.2, 0.05 * i]), 10))
+        lat.append(t)
+    stale = carry
+    theta = np.array([0.8, 0.0])
+    carry, t_move = _synced_s(lambda: solver.update(carry, theta, 600))
+    log(f"[G.3] tracking quadcopter {n}^6 rmax {rmax}, 25 candidates: init 300 iterations "
+        f"{t_init:.2f} s (capture included); 10-iteration cost updates (ms) "
+        f"{[round(1e3 * t, 2) for t in lat]}, median {1e3 * float(np.median(lat)):.2f} ms; "
+        f"update to theta* = {theta.tolist()} for 600 iterations {t_move:.2f} s")
+
+    prob = family(torch.as_tensor(theta, dtype=torch.float32, device=DEVICE))
+    dense = dense_vi(prob, grid, controls=controls, tol=1e-5, max_outer=3000, chunk=25,
+                     eval_sweeps=10, device=DEVICE)
+    q_new, _ = interior_q95(prob, grid, TT(carry.cores, carry.ranks), dense.v)
+    q_old, _ = interior_q95(prob, grid, TT(stale.cores, stale.ranks), dense.v)
+    res, _ = bellman_residual_sample(prob, grid, controls, TT(carry.cores, carry.ranks))
+    hi = prob.value_bounds[1]
+    log(f"[G.3] vs dense_vi at theta* ({dense.sweeps} sweeps on K1, residual "
+        f"{dense.residual:.2e}): interior q95 re-solved {q_new:.4f}, stale {q_old:.4f} (bar "
+        f"{FUSED_Q95_BAR}, and below stale); bellman_residual_sample of the re-solved value "
+        f"{res.item():.4e}; dense v at theta* max {dense.v.max().item():.3f} against the kept "
+        f"upper value bound {hi:.3f}: {int((dense.v > hi).sum())} nodes above it")
+    if not (q_new <= FUSED_Q95_BAR and q_new < q_old):
+        raise AssertionError(f"tracking re-solve at theta*: q95 {q_new:.4f} (stale {q_old:.4f})")
+
+    x0, _ = _rollout_inputs(prob0, n_rollouts, 1)
+    schedule = np.array([[0.0, 0.0], theta])
+    runs = {}
+    for stale_run in (False, True):
+        run, wall = _synced_s(lambda: tracking.tracking_mpc_run(
+            solver, family, schedule, x0, dt=0.01, steps_per_segment=200, replan_iters=300,
+            first_solve_iters=600, stale=stale_run, seed=0))
+        if not torch.isfinite(run.cost).all():
+            raise AssertionError("tracking closed loop: costs not finite")
+        runs[stale_run] = (run.cost.mean().item(), wall, run.replan_latency_s)
+    log(f"[G.3] tracking_mpc_run schedule {schedule.tolist()}, {n_rollouts} rollouts x 2 x "
+        f"200 steps, first solve 600 and replan 300 iterations: mean cost tracking "
+        f"{runs[False][0]:.4f} (replan "
+        f"{1e3 * runs[False][2][0]:.1f} ms, wall {runs[False][1]:.2f} s), stale "
+        f"{runs[True][0]:.4f} (wall {runs[True][1]:.2f} s)")
+    made = tf._GraphedIteration.captures - captures
+    log(f"[G.3] across every cost update: make_fused_vi built {len(builds)} time(s), CUDA "
+        f"graph captured {made} time(s)")
+    if len(builds) != 1 or made != 1:
+        raise AssertionError(f"tracking rebuilt ({len(builds)}) or recaptured ({made})")
+
+
+def phase_g_control(v9, e_cost=None, f2_q95=None):
+    phase_g1_refinement(v9, e_cost, f2_q95)
+    phase_g2_mpc()
+    phase_g3_tracking()
 
 
 def main_fused_only():
@@ -668,29 +936,68 @@ def main_fused_only():
     return 0
 
 
+def k1_launches():
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    return {"dense_backup": db.dense_backup.launches,
+            "dense_evaluate": db.dense_evaluate.launches}
+
+
+def run_phase_g(v9, e_cost=None, f2_q95=None):
+    """Phase G, with the K1 launches it makes (G.1a's policies, G.3's dense
+    solve) counted and required."""
+    before = k1_launches()
+    phase_g_control(v9, e_cost, f2_q95)
+    made = {k: n - before[k] for k, n in k1_launches().items()}
+    log(f"[G] K1 launches in phase G: {made}")
+    for name, count in made.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched by phase G")
+
+
+def main_control_only():
+    """Phases A, B and G, with phase D cut to its 9^6 solve (G needs it)."""
+    phase_a_environment()
+    phase_b_build()
+    run_phase_g(phase_d_solve(sizes=(9,))[9])
+    return 0
+
+
 def main():
     if sys.argv[1:] == ["--phases", "F"]:
         return main_fused_only()
+    if sys.argv[1:] == ["--phases", "G"]:
+        return main_control_only()
     if sys.argv[1:]:
-        raise SystemExit("usage: chip_smoke.py [--phases F]")
+        raise SystemExit("usage: chip_smoke.py [--phases F | --phases G]")
+    marks = [("start", time.perf_counter())]
     phase_a_environment()
     phase_b_build()
     from c3sc_tpu_torch.ops import dense_backup as db
 
+    marks.append(("A+B", time.perf_counter()))
     errs, times, bounds = phase_c_kernel_vs_plain()
-    # the main path's run: counts start at 0 here and are read right after
+    marks.append(("C", time.perf_counter()))
+    # the main path's run: counts start at 0 here; they are read after phase G
     db.dense_backup.launches = 0
     db.dense_evaluate.launches = 0
     values = phase_d_solve()
-    phase_e_rollouts(values[9])
-    launches = {"dense_backup": db.dense_backup.launches,
-                "dense_evaluate": db.dense_evaluate.launches}
-    for name, count in launches.items():
+    e_cost = phase_e_rollouts(values[9])
+    dense_path = k1_launches()
+    log(f"[E] K1 launches in phases D and E: {dense_path}")
+    for name, count in dense_path.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    # the fused TT path runs no hand-written kernel yet (its two blocks are
-    # plain PyTorch), so K1's counts above are final before it starts
-    phase_f_fused(values[9])
+    marks.append(("D+E", time.perf_counter()))
+    f2_q95 = phase_f_fused(values[9])
+    marks.append(("F", time.perf_counter()))
+    run_phase_g(values[9], e_cost, f2_q95)
+    marks.append(("G", time.perf_counter()))
+    launches = k1_launches()
+    log(f"[G] K1 launches from phase D through G: {launches}")
+    log("[timing] seconds by phase: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:]))
+        + f", total {marks[-1][1] - marks[0][1]:.1f}")
     # times and bounds of the 11^6 quadcopter sweep with 25 candidates; no single
     # PyTorch call computes either sweep, so there is no library time
     t11, b11 = times[11], bounds[11]

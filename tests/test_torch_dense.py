@@ -82,8 +82,6 @@ def test_dense_policy_matches_jax():
     near_tie = (rhs[1] - rhs[0]) <= 1e-5 * np.maximum(1.0, np.abs(rhs[0]))
     differ = (got.numpy() != want).reshape(-1)
     assert not np.any(differ & ~near_tie)
-    with pytest.raises(NotImplementedError):
-        dense_policy(tp, tg, v, uc, device="cpu", refine_steps=2)
 
 
 def test_default_device_is_the_card_and_nothing_falls_back_to_the_cpu():

@@ -398,7 +398,6 @@ def test_probe_harvest_runs_and_validates():
 @pytest.mark.parametrize("kw,waits_for", [
     (dict(oversample=0.5), "rectangular-maxvol"),
     (dict(base=TT((), torch.ones(1))), "fused_tt_vi_refined"),
-    (dict(refine_steps=2), "argmin"),
     (dict(mesh=object()), "multi-GPU"),
     (dict(checkpoint_path="x.npz"), "checkpoint"),
     (dict(resume_from="x.npz"), "checkpoint"),

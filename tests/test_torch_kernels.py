@@ -158,3 +158,30 @@ def test_dense_vi_runs_through_the_kernels(cuda):
     assert sol.v.device.type == "cuda"
     want = value_from_npz(V5, "cpu").numpy()
     assert np.abs(sol.v.cpu().numpy() - want).max() <= 1e-4 * (want.max() - want.min())
+
+
+@pytest.mark.parametrize("refine_steps", [0, 2])
+def test_graphed_step_fn_runs_exactly_n_like_the_eager_one(cuda, refine_steps):
+    """``step_fn`` under ``cuda_graph=True`` replays the one captured masked
+    iteration with its force flag set: from a carry past its patience it runs
+    exactly n iterations, as the eager ``step_fn`` does, while the graphed
+    ``run_fn`` stops; one capture serves both, with the refinement's autograd
+    inside it. Samples within 1e-5 x max|v| of the eager loop's."""
+    from c3sc_tpu_torch.solvers import fused
+
+    prob = tm.make_problem("lq", sigma=1.0, beta=1.0)
+    grid = prob.default_grid(21)
+    kw = dict(rmax=6, tol=0.0, max_iters=10**9, window=5, patience=1, freeze_after=10,
+              refine_steps=refine_steps, device=cuda)
+    eager = fused.make_fused_vi(prob, grid, prob.control_candidates(9), **kw)
+    graphed = fused.make_fused_vi(prob, grid, prob.control_candidates(9), cuda_graph=True, **kw)
+    captures = fused._GraphedIteration.captures
+    stopped = eager.run_fn(eager.init_fn(0), 200)
+    it = int(stopped.it)
+    assert it < 200
+    assert int(graphed.run_fn(stopped, 5).it) == it
+    got, want = graphed.step_fn(stopped, 3), eager.step_fn(stopped, 3)
+    assert int(got.it) == int(want.it) == it + 3
+    scale = float(want.v_sample.abs().max())
+    torch.testing.assert_close(got.v_sample, want.v_sample, rtol=0, atol=1e-5 * scale)
+    assert fused._GraphedIteration.captures == captures + 1

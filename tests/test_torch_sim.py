@@ -78,8 +78,6 @@ def test_implicit_policy_matches_jax():
     differ = np.any(got != want, axis=-1)
     assert not np.any(differ & ~near_tie)
     assert np.mean(~differ) > 0.95
-    with pytest.raises(NotImplementedError):
-        make_implicit_policy(tp, tg, tvf, uc, refine_steps=3)
 
 
 def _feedback(xp):
