@@ -9,16 +9,24 @@ in float32. Entry points run on the CUDA device (``default_device()``)
 unless the caller passes ``device="cpu"``; functions that take tensors
 follow their inputs.
 
-Ported so far (the dense Bellman path and the fused TT value iteration):
+Ported so far (the dense Bellman path, the fused TT value iteration, the
+receding-horizon control path and the flagship accuracy stack):
   grids.py            tensor-product grids (uniform and non-uniform)
   models/             ControlProblem + quadcopter, pendulum, LQ
   ops/mca.py          Kushner–Dupuis stencil
   ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cu)
   ops/interp.py       multilinear interpolation
-  ops/tt.py           padded tensor trains: evaluation, add, round, save/load
+  ops/tt.py           padded tensor trains: evaluation, add, round, refine, save/load
+  ops/cross.py        nested cross index sets (CrossState)
   solvers/dense.py    dense_vi (modified policy iteration), dense_policy
   solvers/fused.py    make_fused_vi, fused_tt_vi (square scheme; plain PyTorch)
-  sim/                implicit policy, batched rollouts
+  solvers/ttvi.py     the TT Bellman backup and its chunked kernel
+  solvers/polish.py   two-site polish, level and mode corrections
+  solvers/twogrid.py  coarse-grid correction
+  solvers/gating.py   measured accept/reject of correction stages
+  solvers/local_patch.py  the local dense patch (kernel K1) and the two-level composite
+  sim/                implicit policy, batched rollouts, fused MPC, tracking,
+                      iLQR and receding-horizon MPC
   convert.py          numpy carriers of state from the JAX package
   device.py           the default device of every ``device=None``; constants kept on it
 

@@ -6,7 +6,10 @@ travels as its static description, and a solved dense value as the ``v``
 array of an npz: ``experiments/artifacts/quad_dense_v*.npz`` and the CLI's
 ``vf.npz``. A TT value travels as its padded cores and ranks (the npz keys
 ``core_k`` and ``ranks`` of either package's ``tt_save``), and the whole
-state of a fused solve as the fields of its ``FusedCarry``.
+state of a fused solve as the fields of its ``FusedCarry``. The cross index
+sets of a two-site fit travel as their ``left`` / ``right`` arrays, and a
+local dense patch as the npz keys ``v``, ``lo`` and ``hi`` that
+``experiments/quad_dense_oracle.py`` writes.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ def tt_from_numpy(cores, ranks, device=None) -> TT:
     given as numpy arrays (a JAX ``TT``'s fields), as float32 / int32 on
     ``device`` (None: the default CUDA device)."""
     device = resolve_device(device)
-    return TT(tuple(torch.as_tensor(np.asarray(c, np.float32), device=device) for c in cores),
-              torch.as_tensor(np.asarray(ranks, np.int32), device=device))
+    return TT(tuple(torch.as_tensor(np.array(c, np.float32), device=device) for c in cores),
+              torch.as_tensor(np.array(ranks, np.int32), device=device))
 
 
 def tt_from_npz(path: str, device=None) -> TT:
@@ -77,3 +80,30 @@ def fused_carry_from_numpy(mapping, device=None):
     return FusedCarry(**{name: (tuple(move(name, c) for c in mapping[name])
                                 if name in ("cores", "cores_best") else move(name, mapping[name]))
                          for name in FusedCarry._fields})
+
+
+def cross_state_from_numpy(left, right):
+    """The port's ``CrossState`` from a JAX ``CrossState``'s ``left`` and
+    ``right`` lists of integer arrays (copied, as int64 numpy)."""
+    from c3sc_tpu_torch.ops.cross import CrossState
+
+    return CrossState(left=[np.array(a, np.int64) for a in left],
+                      right=[np.array(a, np.int64) for a in right])
+
+
+def patch_from_npz(path: str, grid: Grid, device=None):
+    """A ``LocalPatch`` from an npz with the keys ``v`` (the patch values
+    [*sub_shape]), ``lo`` and ``hi`` (the sub-box's first and last node
+    indices in ``grid``), on ``device`` (None: the default CUDA device). Its
+    subgrid is rebuilt from ``grid``; the solve's residual and sweep count are
+    not stored and read as NaN and 0."""
+    from c3sc_tpu_torch.solvers.local_patch import LocalPatch, patch_subgrid
+
+    with np.load(path) as z:
+        v, lo, hi = np.asarray(z["v"], np.float32), z["lo"], z["hi"]
+    lo, hi = tuple(int(i) for i in lo), tuple(int(i) for i in hi)
+    subgrid = patch_subgrid(grid, lo, hi)
+    if tuple(v.shape) != subgrid.shape:
+        raise ValueError(f"patch values {v.shape} do not fit the sub-box {subgrid.shape}")
+    return LocalPatch(subgrid=subgrid, v=torch.as_tensor(v, device=resolve_device(device)),
+                      lo=lo, hi=hi, residual=float("nan"), sweeps=0)

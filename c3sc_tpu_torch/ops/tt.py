@@ -12,8 +12,8 @@ directions instead of changing shapes. On the GPU the same padding keeps
 every launch of a rank-adaptive solve at one shape, so nothing in it depends
 on a rank read back to the host.
 
-``tt_dot``, ``tt_norm``, ``tt_mult``, ``tt_integrate`` and ``tt_refine_grid``
-of the JAX module are not ported yet.
+``tt_dot``, ``tt_norm``, ``tt_mult`` and ``tt_integrate`` of the JAX module
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -317,6 +317,37 @@ def tt_add(a: TT, b: TT, on_overflow: str = "round", round_tol: float = 1e-7) ->
         )
     wide = _tt_add_raw(a, b, 2 * R)
     return _repad(tt_round(wide, round_tol, R), R)
+
+
+def tt_refine_grid(tt: TT, grid_coarse, grid_fine) -> TT:
+    """Prolong a TT from a coarse grid to a finer one, exactly for the
+    linear-element class: each core's node slices are lerped in 1-D onto the
+    fine nodes (ranks unchanged). Coarse dims may be non-uniform (the
+    layer-keeping coarse grids of ``solvers/twogrid.py``)."""
+    assert tt.ndim == grid_coarse.ndim == grid_fine.ndim
+    cores = []
+    for k in range(tt.ndim):
+        xf = np.asarray(grid_fine.nodes(k))
+        nc = grid_coarse.shape[k]
+        if grid_coarse.uniform or grid_coarse.periodic[k]:
+            hc = float(grid_coarse.h[k])
+            t = (xf - grid_coarse.lb[k]) / hc
+            cell = np.floor(t).astype(np.int64)
+            hi = nc - 1 if grid_coarse.periodic[k] else nc - 2
+            cell = np.clip(cell, 0, max(hi, 0))
+            w = np.clip(t - cell, 0.0, 1.0)
+            j1 = np.mod(cell + 1, nc) if grid_coarse.periodic[k] else np.clip(cell + 1, 0, nc - 1)
+        else:
+            xc = np.asarray(grid_coarse.nodes(k))
+            cell = np.clip(np.searchsorted(xc, xf, side="right") - 1, 0, nc - 2)
+            w = np.clip((xf - xc[cell]) / (xc[cell + 1] - xc[cell]), 0.0, 1.0)
+            j1 = cell + 1
+        c = tt.cores[k]
+        cell = torch.as_tensor(cell, dtype=torch.int64, device=c.device)
+        j1 = torch.as_tensor(j1, dtype=torch.int64, device=c.device)
+        w = torch.as_tensor(w, dtype=c.dtype, device=c.device)
+        cores.append(c[:, cell, :] * (1 - w)[None, :, None] + c[:, j1, :] * w[None, :, None])
+    return TT(tuple(cores), tt.ranks)
 
 
 # -------------------------------------------------------------------- rounding

@@ -1,12 +1,25 @@
 """Solvers ported so far: the dense-grid oracle, the fused TT value
-iteration, and the TT Bellman backup with continuous control refinement."""
+iteration, the TT Bellman backup with continuous control refinement, and the
+flagship accuracy stack (two-site polish, coarse-grid correction, gating,
+the local dense patch)."""
 
 from c3sc_tpu_torch.solvers.dense import DenseSolution, dense_policy, dense_vi
 from c3sc_tpu_torch.solvers.fused import (FusedCarry, FusedSolver, FusedVISolution,
                                           fused_tt_vi, make_fused_vi, pad_fused_carry)
+from c3sc_tpu_torch.solvers.gating import GateRecord, gated_apply, make_greedy_probe, probe_trim
+from c3sc_tpu_torch.solvers.local_patch import (LocalPatch, TwoLevelResult, default_patch_bounds,
+                                                make_patch_node_value_fn, make_patched_value_fn,
+                                                solve_local_patch, two_level_solve)
+from c3sc_tpu_torch.solvers.polish import PolishResult, level_correct, mode_correct, tt_polish
 from c3sc_tpu_torch.solvers.ttvi import (bellman_backup, bellman_residual_sample,
-                                         refine_controls, rhs_continuous)
+                                         make_bellman_kernel, refine_controls, rhs_continuous)
+from c3sc_tpu_torch.solvers.twogrid import TwoGridInfo, coarse_correct, coarse_grid
 
 __all__ = ["DenseSolution", "dense_vi", "dense_policy", "FusedCarry", "FusedSolver",
            "FusedVISolution", "fused_tt_vi", "make_fused_vi", "pad_fused_carry",
-           "bellman_backup", "bellman_residual_sample", "refine_controls", "rhs_continuous"]
+           "bellman_backup", "bellman_residual_sample", "make_bellman_kernel", "refine_controls",
+           "rhs_continuous", "PolishResult", "tt_polish", "level_correct", "mode_correct",
+           "TwoGridInfo", "coarse_grid", "coarse_correct", "GateRecord", "gated_apply",
+           "make_greedy_probe", "probe_trim", "LocalPatch", "TwoLevelResult",
+           "default_patch_bounds", "solve_local_patch", "make_patch_node_value_fn",
+           "two_level_solve", "make_patched_value_fn"]

@@ -9,8 +9,10 @@ the fused solver, the policies and the residual check share.
 L-BFGS steps on the continuous right-hand side (``rhs_continuous``), whose
 gradient with respect to u comes from ``torch.autograd``. Terminal nodes
 are pinned both where the backup is evaluated and at the neighbours it
-reads. ``tt_vi``, ``make_bellman_kernel`` and the ``CrossState`` path are
-not ported yet.
+reads. ``make_bellman_kernel`` evaluates the backup at any number of nodes
+in chunks; a ``node_value_fn`` replaces the TT's neighbour values (the
+two-level composite of ``solvers/local_patch.py``). ``tt_vi`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from c3sc_tpu_torch.device import const_tensor
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
@@ -67,13 +70,17 @@ def refine_controls(problem: ControlProblem, grid: Grid, x, vn, u0, f0,
     return u_opt, torch.minimum(f_opt, f0)
 
 
-def _pinned_neighbor_values(problem: ControlProblem, grid: Grid, v_tt: TT, idx, dtype):
+def _pinned_neighbor_values(problem: ControlProblem, grid: Grid, v_tt: TT, idx, dtype,
+                            node_value_fn=None):
     """TT neighbour values, clipped to the value bounds and pinned at
-    terminal neighbours. Returns (x [B, d], vn [B, 2, d])."""
+    terminal neighbours. ``node_value_fn(v_tt, idx [B, d]) -> [B]`` replaces
+    the plain TT gather (the two-level composite TT + patch field).
+    Returns (x [B, d], vn [B, 2, d])."""
     d = problem.dx
     x = grid.index_to_state(idx).to(dtype)
     nb_flat = _neighbor_indices(grid, idx).reshape(-1, d)
-    vn = tt_gather_eval(v_tt, nb_flat)
+    vn = (tt_gather_eval(v_tt, nb_flat) if node_value_fn is None
+          else node_value_fn(v_tt, nb_flat))
     if problem.value_bounds is not None:
         # rank-limited outliers cannot feed back through the backup
         vn = torch.clamp(vn, problem.value_bounds[0], problem.value_bounds[1])
@@ -84,12 +91,14 @@ def _pinned_neighbor_values(problem: ControlProblem, grid: Grid, v_tt: TT, idx, 
 
 
 def bellman_backup(problem: ControlProblem, grid: Grid, uc, v_tt: TT, idx,
-                   dtype=torch.float32, refine_steps: int = 0, refine_method: str = "pgd"):
+                   dtype=torch.float32, refine_steps: int = 0, refine_method: str = "pgd",
+                   node_value_fn=None):
     """The backup at nodes idx [B, d] -> [B]: the min over the candidates uc
     [C, du] (a tensor on idx's device) of the stencil's right-hand side,
     refined by ``refine_steps`` continuous steps, clipped to the value
-    bounds, terminal nodes pinned."""
-    x, vn = _pinned_neighbor_values(problem, grid, v_tt, idx, dtype)
+    bounds, terminal nodes pinned. ``node_value_fn`` as in
+    ``_pinned_neighbor_values``."""
+    x, vn = _pinned_neighbor_values(problem, grid, v_tt, idx, dtype, node_value_fn)
     pp, pm, dt = mca.transition_all_controls(problem, grid, x, uc)    # [C, B, d]
     g = mca.stage_cost_all(problem, x, uc)                            # [C, B]
     expect = torch.sum(pp * vn[None, :, 0] + pm * vn[None, :, 1], dim=-1)
@@ -120,3 +129,33 @@ def bellman_residual_sample(problem: ControlProblem, grid: Grid, controls, v_tt:
     v = tt_gather_eval(v_tt, idx).to(dtype)
     scale = torch.clamp(torch.max(torch.abs(v)), min=1e-12)
     return (torch.max(torch.abs(tv - v)) / scale).to(dtype), scale
+
+
+def make_bellman_kernel(problem: ControlProblem, grid: Grid, controls, chunk: int = 4096,
+                        dtype=torch.float32, refine_steps: int = 0,
+                        refine_method: str = "pgd", node_value_fn=None):
+    """The Bellman backup as a function of a TT value and any number of nodes:
+    ``bellman(v_tt, idx [B, d] int) -> [B]`` on the TT's device.
+
+    ``idx`` may be a tensor or a numpy array (uploaded once). The nodes are
+    evaluated ``chunk`` at a time, which bounds the transient memory (the
+    neighbour gather of a chunk is ``2 d chunk`` TT evaluations). With no
+    jit there is nothing to recompile, so the last chunk is not padded.
+    ``refine_steps``, ``refine_method`` and ``node_value_fn`` as in
+    ``bellman_backup``.
+    """
+    if refine_steps > 0:
+        check_refine_method(refine_method)
+    controls = np.asarray(controls, np.float32)
+
+    def bellman(v_tt: TT, idx):
+        dev = v_tt.cores[0].device
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+        uc = const_tensor(controls, dtype, dev)
+        with torch.no_grad():
+            pieces = [bellman_backup(problem, grid, uc, v_tt, idx[i:i + chunk], dtype,
+                                     refine_steps, refine_method, node_value_fn)
+                      for i in range(0, idx.shape[0], chunk)]
+        return torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+
+    return bellman

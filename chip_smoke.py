@@ -5,6 +5,8 @@ iteration and the receding-horizon control path once on one NVIDIA GPU.
     python3 chip_smoke.py              every phase
     python3 chip_smoke.py --phases F   phases A, B, D at 9^6 and F (while developing)
     python3 chip_smoke.py --phases G   phases A, B, D at 9^6 and G (while developing)
+    python3 chip_smoke.py --phases H   phases A, B, D at 9^6 and H at the recipe's full
+                                       depth (6 cycles, 256 iLQR rollouts)
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -52,8 +54,28 @@ non-zero, with no result line):
          moved target against dense_vi there (K1), q95 <= 0.25 and below the
          stale value's; tracking against stale closed loops; one build and one
          graph capture across every cost update
-K1's launch counts start at 0 before D and are read after G (D and E, and
-G, must each launch both entries). Then one JSON line of the kernels, and as the last line
+  H  the flagship accuracy stack on the 9^6 quadcopter (25 candidates), the
+     recipe of experiments/quad_dense_oracle.py:
+     H.1 the committed seed-0 fields (northstar_seed0_{v,patch}.npz): the
+         deployed composite at all 531,441 nodes against quad_dense_v9.npz,
+         interior q95 within 1e-4 of the JAX package's 0.028826; the patch
+         re-solved from the TT's faces by solve_local_patch through K1
+     H.2 the recipe from F.2's rank-16 fused TT (solved here under --phases H):
+         re-padded to rank 64, cycles of [two-site polish, 10 steps + coarse-grid
+         correction] (6 under --phases H, 2 in the whole script), gated level and
+         mode corrections with a 24 x 250 greedy probe, two_level_solve (2
+         cycles, margin 1); interior q95 per stage, below the fused base's at
+         the end (and <= 0.05 at full depth)
+     H.3 deployment on the composite and on the dense value under common random
+         numbers: greedy closed loops 256 x 400 steps at dt 0.01 (x0 as
+         quad_dense_oracle.py draws it), then receding-horizon iLQR (horizon 128,
+         a replan every 4 steps, 8 iterations, no terminal LQR; 64 rollouts in
+         the whole script, 256 under --phases H), each replan a CUDA graph
+     then K1 held against its plain version on the patch's 7^6 sub-box (one
+     sweep, and the whole patch solve)
+K1's launch counts are set to 0 before each of D+E, F, G and H and read
+after it (each must launch both entries, H the improve entry); the kernels
+line sums them. Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -78,6 +100,8 @@ TIE_BAR = 1e-5       # argmins may differ where the two best rhs are this close
 SOLVE_BAR = 5e-3     # max |v - stored v| after dense_vi (value range ~98)
 PARITY_BAR = 1e-4    # card against CPU on values, relative to max|v| (phase F.1)
 FUSED_Q95_BAR = 0.25  # interior q95 of |v_tt - v_dense| / (max - min of v_dense), 9^6 rmax 16
+SEED0_Q95 = 0.028826  # the JAX package's interior q95 of the committed seed-0 composite
+FLAGSHIP_Q95_BAR = 0.05   # the deployed composite at the recipe's full depth (JAX seeds 0.012-0.032)
 MPC_BUDGET_S = 25 * 0.01   # real time: a warm replan within the 25 x 0.01 s it plans for
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
@@ -690,14 +714,14 @@ def phase_f5_rollouts(sol, n_rollouts=256, n_steps=400, dt=0.01):
 
 
 def phase_f_fused(v9):
-    """Phase F; returns F.2's interior q95."""
+    """Phase F; returns F.2's solution and its interior q95."""
     phase_f1_device_parity()
     phase_f1c_converging_solve()
     sol, q95 = phase_f2_solve(v9)
     carries = phase_f3_bench()
     profile_iterations(*carries[16], label="quadcopter 31^6 rmax 16")
     phase_f5_rollouts(sol)
-    return q95
+    return sol, q95
 
 
 def _synced_s(fn):
@@ -928,6 +952,266 @@ def phase_g_control(v9, e_cost=None, f2_q95=None):
     phase_g3_tracking()
 
 
+# ---- phase H: the flagship accuracy stack -------------------------------------------
+
+def _flagship_setup():
+    from c3sc_tpu_torch.convert import value_from_npz
+    from c3sc_tpu_torch.models import make_problem
+
+    prob = make_problem("quadcopter", **QUAD)
+    grid = prob.default_grid(9)
+    uc = prob.control_candidates(5)
+    return prob, grid, uc, value_from_npz(os.path.join(ART, "quad_dense_v9.npz"), DEVICE)
+
+
+def field_q95(prob, values, v_dense):
+    """(interior q95, full q95) of |values - v_dense| / (max - min of v_dense)
+    at the nodes; interior: off the absorbing faces."""
+    from c3sc_tpu_torch.models.base import Boundary
+
+    if not torch.isfinite(values).all():
+        raise AssertionError("a value field is not finite")
+    rel = (values.double() - v_dense.double()).abs() / (v_dense.max() - v_dense.min()).double()
+    sl = tuple(slice(1, -1) if b == Boundary.ABSORB else slice(None) for b in prob.boundary)
+    q = lambda a: torch.quantile(a.reshape(-1).float(), 0.95).item()  # noqa: E731
+    return q(rel[sl]), q(rel)
+
+
+def composite_at_nodes(grid, vfn, chunk=131072):
+    """A value function at every node of grid, [*grid.shape]."""
+    x = grid.node_states(DEVICE)
+    with torch.no_grad():
+        return torch.cat([vfn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)]).reshape(
+            grid.shape)
+
+
+def phase_h1_committed():
+    """H.1: the committed seed-0 fields; returns the patch's operands and the
+    stored patch for the kernel's comparison."""
+    from c3sc_tpu_torch.convert import patch_from_npz, tt_from_npz
+    from c3sc_tpu_torch.ops import dense_backup as db
+    from c3sc_tpu_torch.ops.tt import tt_lerp_eval
+    from c3sc_tpu_torch.solvers.local_patch import (make_patch_operands, make_patched_value_fn,
+                                                    solve_local_patch)
+
+    prob, grid, uc, vd = _flagship_setup()
+    v_tt = tt_from_npz(os.path.join(ART, "northstar_seed0_v.npz"), DEVICE)
+    patch = patch_from_npz(os.path.join(ART, "northstar_seed0_patch.npz"), grid, DEVICE)
+    tt_fn = lambda p: tt_lerp_eval(v_tt, grid, p)  # noqa: E731
+    comp, wall = _synced_s(lambda: composite_at_nodes(
+        grid, make_patched_value_fn(grid, tt_fn, patch)))
+    q_in, q_full = field_q95(prob, comp, vd)
+    q_tt, _ = field_q95(prob, composite_at_nodes(grid, tt_fn), vd)
+    log(f"[H.1] committed seed-0 fields (TT ranks {v_tt.ranks.tolist()}, patch "
+        f"{tuple(patch.v.shape)} at nodes {patch.lo}..{patch.hi}): deployed composite at "
+        f"{comp.numel()} nodes in {wall:.3f} s, vs quad_dense_v9.npz interior q95 {q_in:.6f} "
+        f"(JAX {SEED0_Q95}, bar 1e-4), full q95 {q_full:.6f}; the TT alone interior q95 "
+        f"{q_tt:.6f}")
+    if abs(q_in - SEED0_Q95) > 1e-4:
+        raise AssertionError(f"committed composite: interior q95 {q_in:.6f} vs {SEED0_Q95}")
+    before = db.dense_backup.launches
+    sol, wall = _synced_s(lambda: solve_local_patch(prob, grid, tt_fn, uc, margin=1, tol=1e-5,
+                                                    device=DEVICE))
+    launched = db.dense_backup.launches - before
+    ops, v0 = make_patch_operands(prob, grid, tt_fn, uc, patch.lo, patch.hi, DEVICE)
+    face = ops.t_mask.reshape(sol.v.shape)
+    diff = (sol.v - patch.v).abs()
+    log(f"[H.1] patch re-solved from the TT's faces (solve_local_patch, K1): {sol.sweeps} sweeps "
+        f"in {wall:.3f} s, residual {sol.residual:.3e}, {launched} K1 improve launches; "
+        f"|patch - stored patch| max {diff[face].max().item():.4e} on the faces (the stored "
+        f"patch's faces are not the stored TT's), {diff[~face].max().item():.4e} inside")
+    if launched != sol.sweeps or launched == 0 or not torch.isfinite(sol.v).all():
+        raise AssertionError("the patch re-solve did not run through K1")
+    return ops, v0, patch.v.contiguous()
+
+
+def _recipe_fused_base(v9):
+    """F.2's solve: the rank-16 fused TT of the 9^6 quadcopter."""
+    from c3sc_tpu_torch.solvers import fused_tt_vi
+
+    prob, grid, uc, _ = _flagship_setup()
+    return fused_tt_vi(prob, grid, controls=uc, rmax=16, seed=0, tol=2e-4, max_iters=900,
+                       patience=25, probe_rollouts=0, device=DEVICE, cuda_graph=True)
+
+
+def phase_h2_recipe(fused, cycles, rmax=64, steps=10, seed=0):
+    """H.2: quad_dense_oracle.py's recipe from a fused base. Returns the
+    deployed composite's value function and its interior q95."""
+    from c3sc_tpu_torch.ops.tt import _repad, tt_lerp_eval
+    from c3sc_tpu_torch.solvers.gating import gated_apply, make_greedy_probe
+    from c3sc_tpu_torch.solvers.local_patch import make_patched_value_fn, two_level_solve
+    from c3sc_tpu_torch.solvers.polish import level_correct, mode_correct, tt_polish
+    from c3sc_tpu_torch.solvers.ttvi import make_bellman_kernel
+    from c3sc_tpu_torch.solvers.twogrid import coarse_correct
+
+    prob, grid, uc, vd = _flagship_setup()
+
+    def tt_q95(v):
+        with torch.no_grad():
+            return interior_q95(prob, grid, v, vd)[0]
+
+    q_fused = tt_q95(fused.v)
+    log(f"[H.2] fused base (rmax {fused.v.rmax}, {fused.iterations} iterations, "
+        f"{fused.wall_time:.2f} s, "
+        f"ranks {fused.v.ranks.tolist()}): interior q95 {q_fused:.4f}")
+    kernel = make_bellman_kernel(prob, grid, uc, chunk=32768)
+    v, state = _repad(fused.v, rmax), None
+    t_cycles = time.perf_counter()
+    for cyc in range(cycles):
+        t0 = time.perf_counter()
+        psol = tt_polish(prob, grid, uc, v, rmax=rmax, schedule=((steps, rmax),), check_every=4,
+                         kernel=kernel, state=state,
+                         generator=torch.Generator().manual_seed(1000 * seed + cyc))
+        v, state = psol.v, psol.state
+        t1 = time.perf_counter()
+        v, cinfo = coarse_correct(prob, grid, uc, v, kernel=kernel, rmax_corr=32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bres = [round(h["bres"], 5) for h in psol.history if "bres" in h]
+        log(f"[H.2] cycle {cyc}: polish {steps} steps {t1 - t0:.2f} s (best step "
+            f"{psol.best_step}, sampled bres {bres}, ranks {psol.history[-1]['ranks']}, "
+            f"{psol.n_evals} backups); coarse correction {t2 - t1:.2f} s, |e|_max "
+            f"{cinfo.correction_scale:.4f}, bres {cinfo.bres_before:.4f} -> "
+            f"{cinfo.bres_after:.4f}, accepted {cinfo.accepted}; interior q95 {tt_q95(v):.4f}")
+    wall_cycles = time.perf_counter() - t_cycles
+    q_polished = tt_q95(v)
+
+    t0 = time.perf_counter()
+    probe = make_greedy_probe(prob, grid, uc, n_rollouts=24, n_steps=250, dt=0.01,
+                              device=DEVICE)
+    gates = []
+    for name, corr in (("level", level_correct), ("modes", mode_correct)):
+        v, rec = gated_apply(prob, grid, uc, v,
+                             lambda vt, corr=corr: corr(prob, grid, uc, vt, kernel=kernel)[0],
+                             name=name, kernel=kernel, probe_fn=probe)
+        gates.append(rec)
+        log(f"[H.2] gate {name}: bres {rec.bres_before:.4f} -> {rec.bres_after:.4f}, probe "
+            f"{rec.probe_before:.4f} -> {rec.probe_after:.4f}: "
+            f"{'accepted' if rec.accepted else 'rejected'}")
+    wall_gates = time.perf_counter() - t0
+    q_gated = tt_q95(v)
+    t0 = time.perf_counter()
+    tl = two_level_solve(prob, grid, uc, v, rmax=rmax, cycles=2,
+                         cycle_schedule=((steps, rmax),), margin=1,
+                         generator=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    wall_tl = time.perf_counter() - t0
+    v, patch = tl.v, tl.patch
+    vfn = make_patched_value_fn(grid, lambda p: tt_lerp_eval(v, grid, p), patch)
+    q_comp, q_comp_full = field_q95(prob, composite_at_nodes(grid, vfn), vd)
+    for rec in tl.history:
+        log(f"[H.2] two-level cycle {rec['cycle']}: patch residual {rec['patch_res']:.3e} after "
+            f"{rec['patch_sweeps']} sweeps, polish best step {rec['polish_best']}, sampled bres "
+            f"{[round(b, 5) for b in rec['bres']]}")
+    log(f"[H.2] interior q95 fused {q_fused:.4f} -> polished ({cycles} cycles) "
+        f"{q_polished:.4f} -> gated {q_gated:.4f} -> polished TT {tt_q95(v):.4f} -> deployed "
+        f"composite {q_comp:.4f} (full q95 {q_comp_full:.4f}); walls: cycles {wall_cycles:.2f} "
+        f"s, gates {wall_gates:.2f} s, two-level {wall_tl:.2f} s; final ranks "
+        f"{v.ranks.tolist()}")
+    if not q_comp < q_fused:
+        raise AssertionError(f"the recipe did not improve on its base: {q_comp:.4f} vs "
+                             f"{q_fused:.4f}")
+    if cycles >= 6 and not q_comp <= FLAGSHIP_Q95_BAR:
+        raise AssertionError(f"deployed composite at full depth: q95 {q_comp:.4f} > "
+                             f"{FLAGSHIP_Q95_BAR}")
+    return vfn, q_comp
+
+
+def phase_h3_deploy(vfn_prod, n_greedy=256, n_mpc=256, n_steps=400, dt=0.01):
+    """H.3: greedy and receding-horizon iLQR closed loops on the deployed
+    composite and on the dense value, under common random numbers."""
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+    from c3sc_tpu_torch.sim.mpc_shoot import receding_horizon_rollout
+
+    prob, grid, uc_np, vd = _flagship_setup()
+    uc = torch.as_tensor(uc_np, dtype=torch.float32, device=DEVICE)
+    vfn_dense = lambda p: multilinear_interp(grid, vd, p)  # noqa: E731
+    rng = np.random.default_rng(4242)                     # quad_dense_oracle.py:247-251
+    x0 = torch.as_tensor(0.4 * rng.uniform(-1, 1, (n_greedy, 6))
+                         * np.asarray([2.0, 2.0, 1.0, 3.0, 3.0, 4.0]),
+                         dtype=torch.float32, device=DEVICE)
+    noise = torch.randn((n_steps, n_greedy, prob.dw),
+                        generator=torch.Generator(device=DEVICE).manual_seed(1000),
+                        device=DEVICE)
+    fields = (("composite", vfn_prod), ("dense", vfn_dense))
+    greedy = {}
+    for label, vfn in fields:
+        pol = make_implicit_policy(prob, grid, vfn, uc)
+        with torch.no_grad():
+            traj, wall = _synced_s(lambda: rollout(prob, grid, pol, x0, dt, n_steps, noise=noise))
+        if not torch.isfinite(traj.cost).all():
+            raise AssertionError(f"greedy closed loop on the {label} value: costs not finite")
+        greedy[label] = (traj.cost.mean().item(), traj.alive[-1].float().mean().item(), wall)
+    (c_p, s_p, w_p), (c_o, s_o, _) = greedy["composite"], greedy["dense"]
+    log(f"[H.3] greedy closed loop {n_greedy} x {n_steps} steps dt {dt}: mean cost composite "
+        f"{c_p:.4f} dense {c_o:.4f} (rel {(c_p - c_o) / abs(c_o):+.4f}), survival composite "
+        f"{100 * s_p:.2f}% dense {100 * s_o:.2f}%, wall {w_p:.2f} s")
+    mpc = {}
+    for label, vfn in fields:
+        times = []
+        traj, wall = _synced_s(lambda: receding_horizon_rollout(
+            prob, grid, vfn, x0[:n_mpc], dt=dt, n_steps=n_steps, horizon=128, replan_every=4,
+            opt_iters=8, controls=uc, noise=noise[:, :n_mpc], replan_times=times))
+        if not (torch.isfinite(traj.cost).all() and torch.isfinite(traj.xs).all()):
+            raise AssertionError(f"iLQR closed loop on the {label} value: not finite")
+        mpc[label] = (traj.cost.mean().item(), traj.alive[-1].float().mean().item(), wall,
+                      times)
+    (c_p, s_p, w_p, t_p), (c_o, s_o, w_o, t_o) = mpc["composite"], mpc["dense"]
+    log(f"[H.3] receding-horizon iLQR (horizon 128, replan every 4, 8 iterations, pure MPC) "
+        f"{n_mpc} x {n_steps} steps: mean cost composite {c_p:.4f} dense {c_o:.4f}, signed_rel "
+        f"{(c_p - c_o) / abs(c_o):+.4f}, survival composite {100 * s_p:.2f}% dense "
+        f"{100 * s_o:.2f}%; {len(t_p)} replans, median replan {1e3 * np.median(t_p[1:]):.2f} ms "
+        f"(composite) {1e3 * np.median(t_o[1:]):.2f} ms (dense), first (the graph's capture "
+        f"on CUDA) {t_p[0]:.2f} s; wall {w_p:.2f} s and {w_o:.2f} s")
+
+
+def compare_patch_kernel(ops, v0, stored, tol=1e-5, max_sweeps=2000, chunk=50):
+    """K1 against its plain version on the patch's sub-box (outside the
+    counted runs): one sweep on the stored patch (compare_sweep), then the
+    whole patch solve with the plain sweep on the card against the same
+    solve through the kernel. Returns the largest improve difference."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    n = ops.grid.shape[0]
+    err, _ = compare_sweep(ops, stored, None, False,
+                           f"quadcopter 9^6 patch sub-box {n}^6, 25 candidates, stored patch")
+    solved = {}
+    for name, sweep in (("kernel", db.dense_backup), ("plain", db.dense_backup_reference)):
+        v, done, res = v0.reshape(ops.grid.shape).contiguous(), 0, float("inf")
+        while done < max_sweeps:
+            for i in range(chunk):
+                vnew, _ = sweep(ops, v)
+                if i == chunk - 1:
+                    res = torch.max(torch.abs(vnew - v)).item()
+                v = vnew
+            done += chunk
+            if res < tol:
+                break
+        solved[name] = (v, done)
+    diff = (solved["kernel"][0] - solved["plain"][0]).abs().max().item()
+    times = {name: loop_ms(lambda f=f: f(ops, stored), 100 if name == "kernel" else 20)
+             for name, f in (("kernel", db.dense_backup), ("plain", db.dense_backup_reference))}
+    log(f"[H] patch solve on the card, kernel vs plain sweep: {solved['kernel'][1]} and "
+        f"{solved['plain'][1]} sweeps, max|diff| {diff:.3e} (bar {VALUE_BAR} x max|v|); per "
+        f"sweep at {n}^6 (loop of launches between one event pair): kernel "
+        f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms")
+    if solved["kernel"][1] != solved["plain"][1] or \
+            diff > VALUE_BAR * solved["plain"][0].abs().max().item():
+        raise AssertionError("the patch solve through K1 differs from its plain version")
+    return err
+
+
+def phase_h_flagship(v9, fused=None, cycles=2, n_mpc=64):
+    """Phase H; returns what compare_patch_kernel needs."""
+    h1 = phase_h1_committed()
+    if fused is None:
+        fused = _recipe_fused_base(v9)
+    vfn, _ = phase_h2_recipe(fused, cycles)
+    phase_h3_deploy(vfn, n_mpc=n_mpc)
+    return h1
+
+
 def main_fused_only():
     """Phases A, B and F, with phase D cut to its 9^6 solve (F.2 needs it)."""
     phase_a_environment()
@@ -943,61 +1227,92 @@ def k1_launches():
             "dense_evaluate": db.dense_evaluate.launches}
 
 
-def run_phase_g(v9, e_cost=None, f2_q95=None):
-    """Phase G, with the K1 launches it makes (G.1a's policies, G.3's dense
-    solve) counted and required."""
-    before = k1_launches()
-    phase_g_control(v9, e_cost, f2_q95)
-    made = {k: n - before[k] for k, n in k1_launches().items()}
-    log(f"[G] K1 launches in phase G: {made}")
-    for name, count in made.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched by phase G")
+def counted(label, fn, required=("dense_backup", "dense_evaluate"), totals=None):
+    """Run one path of the main run with K1's launch counts set to 0 just
+    before it and read just after; every kernel in ``required`` must have
+    been launched. Adds the counts to ``totals``; returns fn()'s result."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    db.dense_backup.launches = 0
+    db.dense_evaluate.launches = 0
+    out = fn()
+    made = k1_launches()
+    log(f"[{label}] K1 launches in phase {label}: {made}")
+    for name in required:
+        if made[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by phase {label}")
+    if totals is not None:
+        for name, n in made.items():
+            totals[name] += n
+    return out
+
+
+def main_fused_only():
+    """Phases A, B and F, with phase D cut to its 9^6 solve (F.2 needs it)."""
+    phase_a_environment()
+    phase_b_build()
+    phase_f_fused(phase_d_solve(sizes=(9,))[9])
+    return 0
 
 
 def main_control_only():
     """Phases A, B and G, with phase D cut to its 9^6 solve (G needs it)."""
     phase_a_environment()
     phase_b_build()
-    run_phase_g(phase_d_solve(sizes=(9,))[9])
+    v9 = phase_d_solve(sizes=(9,))[9]
+    counted("G", lambda: phase_g_control(v9))
+    return 0
+
+
+def main_flagship_only():
+    """Phases A, B and H at the recipe's full depth, with phase D cut to its
+    9^6 solve; H solves its fused base itself (F.2's configuration)."""
+    phase_a_environment()
+    phase_b_build()
+    v9 = phase_d_solve(sizes=(9,))[9]
+    t0 = time.perf_counter()
+    h1 = counted("H", lambda: phase_h_flagship(v9, cycles=6, n_mpc=256),
+                 required=("dense_backup",))
+    log(f"[timing] phase H {time.perf_counter() - t0:.1f} s")
+    compare_patch_kernel(*h1)
     return 0
 
 
 def main():
-    if sys.argv[1:] == ["--phases", "F"]:
-        return main_fused_only()
-    if sys.argv[1:] == ["--phases", "G"]:
-        return main_control_only()
+    modes = {"F": main_fused_only, "G": main_control_only, "H": main_flagship_only}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases" and sys.argv[2] in modes:
+        return modes[sys.argv[2]]()
     if sys.argv[1:]:
-        raise SystemExit("usage: chip_smoke.py [--phases F | --phases G]")
+        raise SystemExit("usage: chip_smoke.py [--phases F | --phases G | --phases H]")
     marks = [("start", time.perf_counter())]
     phase_a_environment()
     phase_b_build()
-    from c3sc_tpu_torch.ops import dense_backup as db
-
     marks.append(("A+B", time.perf_counter()))
     errs, times, bounds = phase_c_kernel_vs_plain()
     marks.append(("C", time.perf_counter()))
-    # the main path's run: counts start at 0 here; they are read after phase G
-    db.dense_backup.launches = 0
-    db.dense_evaluate.launches = 0
-    values = phase_d_solve()
-    e_cost = phase_e_rollouts(values[9])
-    dense_path = k1_launches()
-    log(f"[E] K1 launches in phases D and E: {dense_path}")
-    for name, count in dense_path.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
+    # the main path's run, one path at a time: each counted() sets the counts
+    # to 0 just before its path and reads them just after
+    totals = {"dense_backup": 0, "dense_evaluate": 0}
+
+    def dense_path():
+        values = phase_d_solve()
+        return values, phase_e_rollouts(values[9])
+
+    values, e_cost = counted("D+E", dense_path, totals=totals)
     marks.append(("D+E", time.perf_counter()))
-    f2_q95 = phase_f_fused(values[9])
+    fused, f2_q95 = counted("F", lambda: phase_f_fused(values[9]), totals=totals)
     marks.append(("F", time.perf_counter()))
-    run_phase_g(values[9], e_cost, f2_q95)
+    counted("G", lambda: phase_g_control(values[9], e_cost, f2_q95), totals=totals)
     marks.append(("G", time.perf_counter()))
-    launches = k1_launches()
-    log(f"[G] K1 launches from phase D through G: {launches}")
+    h1 = counted("H", lambda: phase_h_flagship(values[9], fused=fused), totals=totals,
+                 required=("dense_backup",))
+    marks.append(("H", time.perf_counter()))
+    errs["dense_backup"] = max(errs["dense_backup"], compare_patch_kernel(*h1))
+    launches = totals
+    log(f"[H] K1 launches from phase D through H: {launches}")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:]))
-        + f", total {marks[-1][1] - marks[0][1]:.1f}")
+        + f", total {time.perf_counter() - marks[0][1]:.1f}")
     # times and bounds of the 11^6 quadcopter sweep with 25 candidates; no single
     # PyTorch call computes either sweep, so there is no library time
     t11, b11 = times[11], bounds[11]

@@ -185,3 +185,71 @@ def test_graphed_step_fn_runs_exactly_n_like_the_eager_one(cuda, refine_steps):
     scale = float(want.v_sample.abs().max())
     torch.testing.assert_close(got.v_sample, want.v_sample, rtol=0, atol=1e-5 * scale)
     assert fused._GraphedIteration.captures == captures + 1
+
+
+def test_local_patch_solve_runs_through_the_kernel(cuda):
+    """The quadcopter 9^6 patch at margin 1 (the uniform 7^6 sub-box, faces
+    from the stored dense solve) through K1 against the same solve on the
+    CPU's plain sweep: every sweep launches the kernel, the patches agree
+    within 1e-4 x max|v| and stop after the same number of sweeps."""
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.solvers.local_patch import solve_local_patch
+
+    tp = tm.make_problem("quadcopter", **QUAD)
+    grid = tp.default_grid(9)
+    uc = tp.control_candidates(5)
+    path = V5.replace("quad_dense_v5", "quad_dense_v9")
+    patches = {}
+    for dev in ("cpu", cuda):
+        v9 = value_from_npz(path, dev)
+        before = db.dense_backup.launches
+        patches[str(dev)] = solve_local_patch(tp, grid, lambda p: multilinear_interp(grid, v9, p),
+                                              uc, margin=1, tol=1e-5, max_sweeps=200,
+                                              device=dev)
+        launched = db.dense_backup.launches - before
+        assert launched == (patches[str(dev)].sweeps if str(dev) != "cpu" else 0)
+    cpu, gpu = patches["cpu"], patches[str(cuda)]
+    assert gpu.subgrid.shape == (7,) * 6 and gpu.subgrid.uniform and gpu.sweeps == cpu.sweeps
+    assert (gpu.v.cpu() - cpu.v).abs().max() <= 1e-4 * cpu.v.abs().max()
+
+
+def test_nonuniform_patch_on_cuda_raises(cuda):
+    """A pendulum patch (a slice of the periodic theta nodes is not uniform)
+    has no kernel: on CUDA the solve raises instead of falling back."""
+    from c3sc_tpu_torch.solvers.local_patch import solve_local_patch
+
+    tp = tm.make_problem("pendulum")
+    grid = tp.default_grid(31)
+    with pytest.raises(NotImplementedError):
+        solve_local_patch(tp, grid, lambda p: torch.zeros(p.shape[0], device=p.device),
+                          tp.control_candidates(9), lo=(8, 8), hi=(22, 22), device=cuda)
+
+
+def test_receding_horizon_replans_as_one_graph(cuda):
+    """iLQR receding-horizon MPC on the card, where every replan replays one
+    CUDA graph captured at the first, against the same rollout on the CPU
+    (eager): one capture, states within 1e-3 and costs within 1e-3 relative
+    (float32 on two devices through 3 iLQR iterations a replan)."""
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.sim import mpc_shoot
+
+    tp = tm.make_problem("pendulum")
+    grid = tp.default_grid(21)
+    uc = tp.control_candidates(9)
+    v = dense_vi(tp, grid, controls=uc, tol=1e-5, max_outer=2000, device="cpu").v
+    rng = np.random.default_rng(1)
+    x0 = torch.as_tensor(np.stack([np.pi - 0.05 + 0.1 * rng.standard_normal(8),
+                                   0.2 * rng.standard_normal(8)], -1), dtype=torch.float32)
+    noise = torch.randn((24, 8, 1), generator=torch.Generator().manual_seed(0))
+    out = {}
+    captures = mpc_shoot._GraphedCall.captures
+    for dev in ("cpu", cuda):
+        vd = v.to(dev)
+        out[str(dev)] = mpc_shoot.receding_horizon_rollout(
+            tp, grid, lambda p, vd=vd: multilinear_interp(grid, vd, p), x0.to(dev), dt=0.01,
+            n_steps=24, horizon=16, replan_every=4, opt_iters=3, controls=uc,
+            noise=noise.to(dev))
+    assert mpc_shoot._GraphedCall.captures == captures + 1
+    got, want = out[str(cuda)], out["cpu"]
+    assert (got.xs.cpu() - want.xs).abs().max() <= 1e-3
+    torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-3, atol=1e-5)
