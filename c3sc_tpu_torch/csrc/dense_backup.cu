@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel c3sc_tpu/ops/pallas_dense.py
 // (make_pallas_dense_backup, its inner `kernel`, and _neighbor_tables), and
 // carries the fixed-policy `evaluate` sweep of c3sc_tpu/solvers/dense.py
-// (make_dense_step.evaluate) as a second entry point.
+// (make_dense_step.evaluate) as a second entry point. Two general entries
+// (dense_backup_general, dense_evaluate_general, below) take problems
+// without the structure declarations from per-candidate operands.
 //
 // What it computes, per grid node n (row-major multi-index, any d <= 8):
 //   v_in = v, optionally clipped to [lo, hi] and with terminal nodes pinned
@@ -159,23 +161,34 @@ struct NodeTerms {
   float q;
 };
 
+// The diffusion part of the factored stencil from variances s2[j * stride]:
+// Q0 = sum_j 2 a_j + 1e-10 and A0 = sum_j a_j (v+_j + v-_j).
+template <int D, typename Idx>
+C3SC_FN void diffusion_terms(const float* s2, long long stride, const GridDesc<Idx>& g,
+                             const float (&vp)[D], const float (&vm)[D], float& Q0, float& A0) {
+  float q0 = 0.0f, a0 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float a = __fmul_rn(s2[j * stride], g.a_scale[j]);
+    q0 = fmaf(2.0f, a, q0);
+    a0 = fmaf(a, __fadd_rn(vp[j], vm[j]), a0);
+  }
+  Q0 = __fadd_rn(q0, 1e-10f);
+  A0 = a0;
+}
+
 // Fills the rest of t from the node's operands and from t.vp, t.vm.
 template <int D, int DU, typename Idx>
 C3SC_FN void load_node(Idx n, long long N, const Operands& op, const GridDesc<Idx>& g,
                        NodeTerms<D, DU>& t) {
-  float Q0 = 0.0f, A0 = 0.0f;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     const float ih = g.ih[j];
-    const float a = __fmul_rn(op.s2[j * N + n], g.a_scale[j]);
     t.f0h[j] = __fmul_rn(op.f0[j * N + n], ih);
 #pragma unroll
     for (int m = 0; m < DU; ++m) t.Gh[j][m] = __fmul_rn(op.G[(j * DU + m) * N + n], ih);
-    Q0 = fmaf(2.0f, a, Q0);
-    A0 = fmaf(a, __fadd_rn(t.vp[j], t.vm[j]), A0);
   }
-  t.Q0 = __fadd_rn(Q0, 1e-10f);
-  t.A0 = A0;
+  diffusion_terms<D, Idx>(op.s2 + n, N, g, t.vp, t.vm, t.Q0, t.A0);
   t.q = op.q[n];
 }
 
@@ -223,9 +236,9 @@ C3SC_FN void read_candidate(const float4* cand, int c, float (&u)[DU], float& r)
 
 // v at the +-1 neighbours of node n, as the sweep reads it.
 template <int D, typename Idx>
-C3SC_FN void neighbour_values(Idx n, const float* v, const Operands& op, const GridDesc<Idx>& g,
-                              int clip, float lo, float hi, int pin, float (&vp)[D],
-                              float (&vm)[D]) {
+C3SC_FN void neighbour_values(Idx n, const float* v, const uint8_t* t_mask, const float* t_val,
+                              const GridDesc<Idx>& g, int clip, float lo, float hi, int pin,
+                              float (&vp)[D], float (&vm)[D]) {
   Idx up[D], dn[D];
   neighbour_offsets<D, Idx>(n, g, up, dn);
 #pragma unroll
@@ -237,8 +250,8 @@ C3SC_FN void neighbour_values(Idx n, const float* v, const Operands& op, const G
       vm[j] = fminf(fmaxf(vm[j], lo), hi);
     }
     if (pin) {
-      if (op.t_mask[up[j]]) vp[j] = op.t_val[up[j]];
-      if (op.t_mask[dn[j]]) vm[j] = op.t_val[dn[j]];
+      if (t_mask[up[j]]) vp[j] = t_val[up[j]];
+      if (t_mask[dn[j]]) vm[j] = t_val[dn[j]];
     }
   }
 }
@@ -256,7 +269,7 @@ dense_backup_kernel(const float* __restrict__ v, Operands op, GridDesc<Idx> g, l
   const bool active = n < (Idx)N;
   NodeTerms<D, DU> t;
   if (active) {
-    neighbour_values<D, Idx>(n, v, op, g, clip, lo, hi, pin, t.vp, t.vm);
+    neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, t.vp, t.vm);
     load_node<D, DU, Idx>(n, N, op, g, t);
   }
   float best_v = 3.4e38f;
@@ -307,12 +320,129 @@ dense_evaluate_kernel(const float* __restrict__ v, const int32_t* __restrict__ b
     return;
   }
   NodeTerms<D, DU> t;
-  neighbour_values<D, Idx>(n, v, op, g, 0, 0.0f, 0.0f, 0, t.vp, t.vm);
+  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, t.vp, t.vm);
   load_node<D, DU, Idx>(n, N, op, g, t);
   float u[DU];
 #pragma unroll
   for (int m = 0; m < DU; ++m) u[m] = op.uc[c * DU + m];
   vnew[n] = candidate_rhs<D, DU>(t, u, op.r[c], op.beta);
+}
+
+// ---- the general entries: any problem, from per-candidate operands ------------------
+//
+// The counterpart of the Pallas kernel's any-callable contract (it traced the
+// problem's callables into its body) and of the XLA sweeps of
+// c3sc_tpu/solvers/dense.py (_precompute's [C, N, d] stencil). A problem
+// without the control-affine declarations (the glider: its drift is
+// nonlinear in the angle of attack) gives its drift at every (candidate,
+// node), evaluated once per problem and grid by its own callables:
+//   fc [C, d, N]   candidate-major, so a warp's load of one (c, j) is a line;
+//   s2 [d, N]      the declared control-independent variances, or else
+//   s2c [C, d, N]  diag(L L^T) of each candidate;
+//   q [N], r [C]   the declared separable cost, or else gc [C, N].
+// The arithmetic is the structured entry's factored form with f0h + Gh u
+// replaced by fc ih, so a candidate still costs one reciprocal and one
+// exponential. What bounds it is bytes: each candidate reads d floats of fc
+// a node (and d more of s2c, one of gc, where those are per candidate), so
+// at the glider's 41^4 with 9 candidates fc alone is 407 MB a sweep. Offsets
+// c d N + j N + n are 32-bit when C d N < 2^31, else 64-bit (the Idx switch).
+// Measured there on an H100 80GB HBM3 at 700 W (chip_smoke.py, phase I):
+// improve 0.180-0.188 ms against 0.153 ms of bytes; evaluate 0.128-0.134 ms
+// against 0.041 ms, because its reads of fc[best[n], j, n] scatter across the
+// candidate planes (a warp's 32 nodes touch up to C lines a component).
+struct GeneralOperands {
+  const float* fc;        // [C, d, N]
+  const float* s2;        // [d, N] or null
+  const float* s2c;       // [C, d, N] where s2 is null
+  const float* q;         // [N] or null
+  const float* r;         // [C] or null
+  const float* gc;        // [C, N] where q, r are null
+  const uint8_t* t_mask;  // [N]
+  const float* t_val;     // [N]
+  int C;
+  float beta;
+};
+
+// Bellman right-hand side of candidate c at node n. Q0, A0 and q are the
+// node's own terms where s2 and q are declared (unused otherwise).
+template <int D, typename Idx>
+C3SC_FN float general_rhs(const GeneralOperands& op, const GridDesc<Idx>& g, Idx n, Idx N,
+                          int c, const float (&vp)[D], const float (&vm)[D], float Q0,
+                          float A0, float q) {
+  const Idx at = (Idx)c * (Idx)D * N + n;  // (c, 0, n) of the [C, d, N] operands
+  if (op.s2c != nullptr) diffusion_terms<D, Idx>(op.s2c + at, (long long)N, g, vp, vm, Q0, A0);
+  float Q = Q0;
+  float S = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float fh = __fmul_rn(op.fc[at + (Idx)j * N], g.ih[j]);
+    const float af = fabsf(fh);
+    Q = __fadd_rn(Q, af);
+    S = fmaf(af, fh > 0.0f ? vp[j] : vm[j], S);
+  }
+  const float gcost = op.gc != nullptr ? op.gc[(Idx)c * N + n] : __fadd_rn(op.r[c], q);
+  const float dt = __frcp_rn(Q);
+  const float e = expf(__fmul_rn(-op.beta, dt));
+  return __fmul_rn(dt, fmaf(e, __fadd_rn(A0, S), gcost));
+}
+
+// The node's candidate-independent terms of the general form.
+template <int D, typename Idx>
+C3SC_FN void general_node(const GeneralOperands& op, const GridDesc<Idx>& g, Idx n, long long N,
+                          const float (&vp)[D], const float (&vm)[D], float& Q0, float& A0,
+                          float& q) {
+  Q0 = A0 = q = 0.0f;
+  if (op.s2 != nullptr) diffusion_terms<D, Idx>(op.s2 + n, N, g, vp, vm, Q0, A0);
+  if (op.q != nullptr) q = op.q[n];
+}
+
+// The improve sweep of the general form: one thread a node, strict `<`
+// running min over the candidates (first index on ties).
+template <int D, typename Idx>
+__global__ void __launch_bounds__(kBlock)
+dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, GridDesc<Idx> g,
+                            long long N, int clip, float lo, float hi, int pin,
+                            float* __restrict__ vnew, int32_t* __restrict__ best) {
+  const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
+  if (n >= (Idx)N) return;
+  float vp[D], vm[D], Q0, A0, q;
+  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, vp, vm);
+  general_node<D, Idx>(op, g, n, N, vp, vm, Q0, A0, q);
+  float best_v = 3.4e38f;
+  int best_c = 0;
+  for (int c = 0; c < op.C; ++c) {
+    const float rhs = general_rhs<D, Idx>(op, g, n, (Idx)N, c, vp, vm, Q0, A0, q);
+    if (rhs < best_v) {
+      best_v = rhs;
+      best_c = c;
+    }
+  }
+  if (clip) best_v = fminf(fmaxf(best_v, lo), hi);
+  vnew[n] = op.t_mask[n] ? op.t_val[n] : best_v;
+  best[n] = best_c;
+}
+
+// The fixed-policy sweep of the general form: fc[best[n], :, n] alone.
+template <int D, typename Idx>
+__global__ void __launch_bounds__(kBlock)
+dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __restrict__ best,
+                              GeneralOperands op, GridDesc<Idx> g, long long N,
+                              float* __restrict__ vnew) {
+  const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
+  if (n >= (Idx)N) return;
+  if (op.t_mask[n]) {
+    vnew[n] = op.t_val[n];
+    return;
+  }
+  const int c = best[n];
+  if (c < 0 || c >= op.C) {  // make a bad policy index visible, never read past fc
+    vnew[n] = nanf("");
+    return;
+  }
+  float vp[D], vm[D], Q0, A0, q;
+  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, vp, vm);
+  general_node<D, Idx>(op, g, n, N, vp, vm, Q0, A0, q);
+  vnew[n] = general_rhs<D, Idx>(op, g, n, (Idx)N, c, vp, vm, Q0, A0, q);
 }
 
 // ---- host side ---------------------------------------------------------------------
@@ -392,14 +522,20 @@ cudaError_t run(const Call& c, long long N) {
     default: return cudaErrorInvalidValue;       \
   }
 
-cudaError_t dispatch(const Call& c) {
-  if (c.d < 1 || c.d > kMaxD || c.op.C < 1) return cudaErrorInvalidValue;
+// Nodes of a valid grid of d <= kMaxD dims, or -1.
+long long grid_nodes(int d, const long long* shape, const float* h) {
+  if (d < 1 || d > kMaxD) return -1;
   long long N = 1;
-  for (int j = 0; j < c.d; ++j) {
-    if (c.shape[j] < 1 || !(c.h[j] > 0.0f)) return cudaErrorInvalidValue;
-    N *= c.shape[j];
+  for (int j = 0; j < d; ++j) {
+    if (shape[j] < 1 || !(h[j] > 0.0f)) return -1;
+    N *= shape[j];
   }
-  if ((N + kBlock - 1) / kBlock > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return (N + kBlock - 1) / kBlock > 0x7fffffffLL ? -1 : N;
+}
+
+cudaError_t dispatch(const Call& c) {
+  const long long N = grid_nodes(c.d, c.shape, c.h);
+  if (N < 0 || c.op.C < 1) return cudaErrorInvalidValue;
   switch (c.d) {
     case 1: C3SC_DISPATCH_DU(1)
     case 2: C3SC_DISPATCH_DU(2)
@@ -409,6 +545,65 @@ cudaError_t dispatch(const Call& c) {
     case 6: C3SC_DISPATCH_DU(6)
     case 7: C3SC_DISPATCH_DU(7)
     case 8: C3SC_DISPATCH_DU(8)
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One call of either general entry.
+struct GeneralCall {
+  const float* v;
+  const int32_t* best_in;  // the policy of an evaluate sweep; null for improve
+  GeneralOperands op;
+  float* vnew;
+  int32_t* best_out;
+  int d;
+  const long long* shape;
+  const float* h;
+  const int* periodic;
+  int clip;
+  float lo, hi;
+  int pin;
+  int wide;
+  cudaStream_t stream;
+};
+
+template <int D, typename Idx>
+cudaError_t launch_general(const GeneralCall& c, long long N) {
+  GridDesc<Idx> g;
+  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, &g);
+  const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
+  if (c.best_in == nullptr) {
+    dense_backup_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(
+        c.v, c.op, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
+  } else {
+    dense_evaluate_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(c.v, c.best_in, c.op,
+                                                                           g, N, c.vnew);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_general(const GeneralCall& c, long long N) {
+  // the largest offset is that of the [C, d, N] operands
+  if (c.wide || (long long)c.op.C * D * N >= (1LL << 31)) return launch_general<D, long long>(c, N);
+  return launch_general<D, uint32_t>(c, N);
+}
+
+cudaError_t dispatch_general(const GeneralCall& c) {
+  const long long N = grid_nodes(c.d, c.shape, c.h);
+  const GeneralOperands& op = c.op;
+  if (N < 0 || op.C < 1 || op.fc == nullptr || (op.s2 == nullptr) == (op.s2c == nullptr) ||
+      ((op.q != nullptr && op.r != nullptr) == (op.gc != nullptr)))
+    return cudaErrorInvalidValue;
+  switch (c.d) {
+    case 1: return run_general<1>(c, N);
+    case 2: return run_general<2>(c, N);
+    case 3: return run_general<3>(c, N);
+    case 4: return run_general<4>(c, N);
+    case 5: return run_general<5>(c, N);
+    case 6: return run_general<6>(c, N);
+    case 7: return run_general<7>(c, N);
+    case 8: return run_general<8>(c, N);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -440,6 +635,32 @@ int c3sc_dense_evaluate(const float* v, const int32_t* best, const float* f0, co
   const Call c{v,  best, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, nullptr, d, du, shape,
                h,  periodic, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream};
   return (int)dispatch(c);
+}
+
+// One improve sweep of the general form: fc [C,d,N]; s2 [d,N] or s2c [C,d,N];
+// q [N] with r [C], or gc [C,N]; the absent ones null.
+int c3sc_dense_backup_general(const float* v, const float* fc, const float* s2,
+                              const float* s2c, const float* q, const float* r,
+                              const float* gc, const uint8_t* t_mask, const float* t_val,
+                              float* vnew, int32_t* best, int d, int C, const long long* shape,
+                              const float* h, const int* periodic, float beta, int clip,
+                              float lo, float hi, int pin_input, int wide, void* stream) {
+  const GeneralCall c{v, nullptr, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta}, vnew, best, d,
+                      shape, h, periodic, clip, lo, hi, pin_input, wide, (cudaStream_t)stream};
+  return (int)dispatch_general(c);
+}
+
+// One fixed-policy sweep of the general form under the candidate indices `best`.
+int c3sc_dense_evaluate_general(const float* v, const int32_t* best, const float* fc,
+                                const float* s2, const float* s2c, const float* q,
+                                const float* r, const float* gc, const uint8_t* t_mask,
+                                const float* t_val, float* vnew, int d, int C,
+                                const long long* shape, const float* h, const int* periodic,
+                                float beta, int wide, void* stream) {
+  if (best == nullptr) return (int)cudaErrorInvalidValue;
+  const GeneralCall c{v, best, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta}, vnew, nullptr, d,
+                      shape, h, periodic, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream};
+  return (int)dispatch_general(c);
 }
 
 }  // extern "C"

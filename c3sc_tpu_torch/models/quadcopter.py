@@ -1,6 +1,6 @@
 """Quadcopter: 6D planar-quadrotor stochastic hover — port of
-``c3sc_tpu/models/quadcopter.py::make_quadcopter_problem`` and
-``make_quadcopter_family``.
+``c3sc_tpu/models/quadcopter.py::make_quadcopter_problem``,
+``make_quadcopter_family`` and the 7D ``make_quadcopter7_problem``.
 
 State (x, z, th, vx, vz, om), controls (u1, u2) = rotor thrusts in [0, u_max]:
 
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from c3sc_tpu_torch.device import const_tensor
@@ -55,12 +56,13 @@ def make_quadcopter_problem(
         )
         return torch.stack(cols, dim=-1)
 
+    L = np.zeros((6, 3))
+    L[3, 0], L[4, 1], L[5, 2] = sigma_v, sigma_v, sigma_om
+
     def diff(x, u):
-        L = torch.zeros((*batch_shape(x, u), 6, 3), dtype=x.dtype, device=x.device)
-        L[..., 3, 0] = sigma_v
-        L[..., 4, 1] = sigma_v
-        L[..., 5, 2] = sigma_om
-        return L
+        # one constant uploaded once and expanded: writing Python scalars
+        # into a device tensor would cost a host copy per element and call
+        return const_tensor(L, x.dtype, x.device).expand(*batch_shape(x, u), 6, 3)
 
     def stage_cost(x, u):
         pos = x[..., 0] ** 2 + x[..., 1] ** 2
@@ -162,3 +164,74 @@ def make_quadcopter_family(**kwargs):
                                    name="quadcopter_tracking")
 
     return family
+
+
+def make_quadcopter7_problem(
+    wind_tau: float = 2.0,
+    wind_sigma: float = 0.6,
+    wind_max: float = 1.5,
+    **kwargs,
+) -> ControlProblem:
+    """7D quadcopter: the 6D planar quadrotor + an Ornstein-Uhlenbeck wind
+    state w acting on horizontal acceleration:
+
+        vx' += w          (wind drag acceleration)
+        w'   = -w / tau + sigma_w dW
+
+    State (x, z, th, vx, vz, om, w), controls unchanged (2 rotor thrusts).
+    Control-affine structure and separable costs are kept, so all five
+    declarations hold and kernel K1 runs it at (d, du) = (7, 2).
+
+    Where the JAX package writes ``f6.at[3].add(x[6])`` and
+    ``L.at[6, 3].set(wind_sigma)``, the port concatenates slices and expands
+    one uploaded constant: no in-place write, so ``torch.func`` (iLQR) and
+    autograd see plain functions, and no Python scalar meets a 0-d tensor.
+    """
+    base = make_quadcopter_problem(**kwargs)
+    b_drift, b_f0, b_G = base.drift, base.drift_f0, base.drift_G
+    b_s2, b_cost_q = base.sigma2_x, base.cost_q
+    # the constant diffusion and variances: the 6D model's, and the wind's
+    x6, u2 = torch.zeros(6), torch.zeros(2)
+    L7 = np.zeros((7, 4), np.float32)
+    L7[:6, :3] = base.diff(x6, u2).numpy()
+    L7[6, 3] = wind_sigma
+    s2_7 = np.append(b_s2(x6).numpy(), np.float32(wind_sigma**2))
+
+    def with_wind(f6, x):
+        """f6 [..., 6] with the wind added to vx' and w' appended: [..., 7]."""
+        w = x[..., 6]
+        vx, dw = torch.broadcast_tensors(f6[..., 3] + w, -w / wind_tau)
+        return torch.cat([f6[..., :3], vx[..., None], f6[..., 4:], dw[..., None]], dim=-1)
+
+    def drift(x, u):
+        return with_wind(b_drift(x[..., :6], u), x)
+
+    def diff(x, u):
+        return const_tensor(L7, x.dtype, x.device).expand(*batch_shape(x, u), 7, 4)
+
+    def drift_f0(x):
+        return with_wind(b_f0(x[..., :6]), x)
+
+    def drift_G(x):
+        G6 = b_G(x[..., :6])                                  # [..., 6, 2]
+        return torch.cat([G6, G6.new_zeros((*G6.shape[:-2], 1, 2))], dim=-2)
+
+    def sigma2_x(x):
+        return const_tensor(s2_7, x.dtype, x.device).expand(x.shape)
+
+    def cost_q(x):
+        return b_cost_q(x[..., :6])                           # wind itself is free
+
+    return ControlProblem(
+        dx=7, du=2, dw=4,
+        lb=base.lb + (-wind_max,), ub=base.ub + (wind_max,),
+        boundary=base.boundary + (Boundary.REFLECT,),
+        ulb=base.ulb, uub=base.uub,
+        drift=drift, diff=diff,
+        stage_cost=lambda x, u: base.stage_cost(x[..., :6], u),
+        boundary_cost=lambda x: base.boundary_cost(x[..., :6]),
+        drift_f0=drift_f0, drift_G=drift_G, sigma2_x=sigma2_x,
+        cost_q=cost_q, cost_r=base.cost_r,
+        beta=base.beta, name="quadcopter7",
+        value_bounds=base.value_bounds,
+    )

@@ -16,9 +16,18 @@ division-free factored form that ``candidate_rhs_factored`` states in plain
 PyTorch. It reads the per-node operands as structure-of-arrays
 (``f0_k [d, N]``, ``G_k [d, du, N]``, ``s2_k [d, N]``), so that a warp's
 load of one component is one line; the ``[N, d]`` forms are views of the
-same memory. Problems without the declarations (the glider) and non-uniform
-grids raise ``NotImplementedError`` on CUDA; the general ``[C, N, d]`` form
-is a later kernel task.
+same memory.
+
+A problem without all five declarations (the glider, whose drift is
+nonlinear in its control) takes the general entries ``dense_backup_general``
+and ``dense_evaluate_general``, the counterpart of the Pallas kernel's
+any-callable contract and of the XLA sweeps of ``c3sc_tpu/solvers/dense.py``:
+``make_dense_operands`` evaluates the problem's own callables once per
+problem and grid, in candidate chunks, into the per-candidate drift
+``fc_k [C, d, N]`` (and ``s2c_k [C, d, N]`` where ``sigma2_x`` is missing,
+``gc [C, N]`` where ``cost_q`` or ``cost_r`` is); ``dense_backup`` and
+``dense_evaluate`` route such operands there. Non-uniform grids raise
+``NotImplementedError`` on CUDA.
 
 Semantics switches of ``dense_backup``: ``clip=(lo, hi)`` clips the input
 values and the result, ``pin_input=True`` pins terminal nodes of the input
@@ -58,6 +67,12 @@ class DenseOperands:
     declarations evaluated at the nodes and candidates; they are None for a
     problem that lacks them. ``f0 [N, d]``, ``G [N, d, du]`` and
     ``s2 [N, d]`` are transposed views of the kernel's copies.
+
+    Operands of a problem without all five declarations are ``general``:
+    ``fc_k [C, d, N]`` holds the drift of every candidate at every node,
+    ``s2c_k [C, d, N]`` the variances where ``sigma2_x`` is missing (else
+    ``s2_k``), and ``gc [C, N]`` the stage cost where ``cost_q`` or
+    ``cost_r`` is (else ``q`` and ``r``).
     """
 
     problem: ControlProblem
@@ -71,6 +86,14 @@ class DenseOperands:
     s2_k: Optional[torch.Tensor] = None
     q: Optional[torch.Tensor] = None
     r: Optional[torch.Tensor] = None
+    fc_k: Optional[torch.Tensor] = None
+    s2c_k: Optional[torch.Tensor] = None
+    gc: Optional[torch.Tensor] = None
+
+    @property
+    def general(self) -> bool:
+        """True for the per-candidate operands of the general entries."""
+        return self.fc_k is not None
 
     @property
     def f0(self):
@@ -87,29 +110,32 @@ class DenseOperands:
     @functools.cached_property
     def kernel_args(self):
         """What every launch on these operands passes besides v and its
-        outputs, built once: the device pointers (f0_k, G_k, s2_k, q, r, uc,
-        t_mask, t_val) and the scalar and grid arguments as ctypes values.
-        Raises for what the kernel does not take."""
+        outputs, built once: the device pointers and the scalar and grid
+        arguments as ctypes values. Structured: (f0_k, G_k, s2_k, q, r, uc,
+        t_mask, t_val) and (d, du, C, ...); general: (fc_k, s2_k, s2c_k, q,
+        r, gc, t_mask, t_val), the absent ones null, and (d, C, ...).
+        Raises for what the kernels do not take."""
         problem, grid = self.problem, self.grid
-        if self.f0_k is None:
-            raise NotImplementedError(
-                f"dense sweep kernel: problem {problem.name!r} lacks the structure "
-                "declarations drift_f0/drift_G/sigma2_x/cost_q/cost_r; the general "
-                "[C, N, d] form of the kernel is not written yet")
         if not grid.uniform:
             raise NotImplementedError("dense sweep kernel: uniform grids only")
         d, du = grid.ndim, problem.du
         if d > MAX_D or du > MAX_DU:
             raise NotImplementedError(f"dense sweep kernel: d <= {MAX_D}, du <= {MAX_DU}")
-        tensors = (self.f0_k, self.G_k, self.s2_k, self.q, self.r, self.uc, self.t_mask,
-                   self.t_val)
-        if any(t.device != self.x.device or not t.is_contiguous() for t in tensors):
+        if self.general:
+            tensors = (self.fc_k, self.s2_k, self.s2c_k, self.q, self.r, self.gc, self.t_mask,
+                       self.t_val)
+        else:
+            tensors = (self.f0_k, self.G_k, self.s2_k, self.q, self.r, self.uc, self.t_mask,
+                       self.t_val)
+        if any(t is not None and (t.device != self.x.device or not t.is_contiguous())
+               for t in tensors):
             raise ValueError("operands must be contiguous and share one device")
         shape = (ctypes.c_longlong * d)(*grid.shape)
         h = (ctypes.c_float * d)(*np.asarray(grid.h, np.float32).tolist())
         periodic = (ctypes.c_int * d)(*map(int, grid.periodic))
-        scalars = (d, du, self.uc.shape[0], shape, h, periodic, float(problem.beta))
-        return tuple(t.data_ptr() for t in tensors), scalars
+        sizes = (d, self.uc.shape[0]) if self.general else (d, du, self.uc.shape[0])
+        scalars = (*sizes, shape, h, periodic, float(problem.beta))
+        return tuple(0 if t is None else t.data_ptr() for t in tensors), scalars
 
 
 def make_dense_operands(problem: ControlProblem, grid: Grid, controls,
@@ -120,7 +146,6 @@ def make_dense_operands(problem: ControlProblem, grid: Grid, controls,
     x = grid.node_states(resolve_device(device))
     uc = torch.as_tensor(controls, dtype=f32, device=x.device).contiguous()
     t_mask, t_val = mca.node_terminal(problem, grid, grid.node_indices(x.device), x)
-    declared = {}
     if problem.structured:
         # node-major declarations -> the kernel's structure-of-arrays copies
         declared = dict(
@@ -129,8 +154,39 @@ def make_dense_operands(problem: ControlProblem, grid: Grid, controls,
             s2_k=problem.sigma2_x(x).to(f32).T.contiguous(),
             q=problem.cost_q(x).to(f32).contiguous(),
             r=problem.cost_r(uc).to(f32).contiguous())
+    else:
+        declared = _general_operands(problem, x, uc)
     return DenseOperands(problem, grid, x, uc, t_mask.contiguous(),
                          t_val.to(f32).contiguous(), **declared)
+
+
+def _general_operands(problem: ControlProblem, x, uc, chunk_elems: int = 1 << 22):
+    """The per-candidate operands of the general entries, evaluated through
+    the problem's own callables in chunks of candidates (at most about
+    ``chunk_elems`` (candidate, node) pairs at a time): the drift of every
+    candidate, and the variances and the cost from their declarations where
+    those exist, per candidate where they do not."""
+    f32 = torch.float32
+    (N, d), C = x.shape, uc.shape[0]
+    out = {"fc_k": torch.empty((C, d, N), dtype=f32, device=x.device)}
+    if problem.sigma2_x is not None:
+        out["s2_k"] = problem.sigma2_x(x).to(f32).T.contiguous()
+    else:
+        out["s2c_k"] = torch.empty((C, d, N), dtype=f32, device=x.device)
+    if problem.cost_q is not None and problem.cost_r is not None:
+        out["q"] = problem.cost_q(x).to(f32).contiguous()
+        out["r"] = problem.cost_r(uc).to(f32).contiguous()
+    else:
+        out["gc"] = torch.empty((C, N), dtype=f32, device=x.device)
+    step = max(1, chunk_elems // N)
+    for c0 in range(0, C, step):
+        u = uc[c0:c0 + step]
+        out["fc_k"][c0:c0 + step] = problem.drift(x[None], u[:, None]).transpose(1, 2)
+        if "s2c_k" in out:
+            out["s2c_k"][c0:c0 + step] = problem.sigma2_diag(x[None], u[:, None]).transpose(1, 2)
+        if "gc" in out:
+            out["gc"][c0:c0 + step] = problem.stage_cost(x[None], u[:, None])
+    return out
 
 
 # ---- plain PyTorch version ------------------------------------------------------
@@ -176,29 +232,36 @@ def candidate_rhs(ops: DenseOperands, v, clip=None, pin_input: bool = False):
 
 
 def candidate_rhs_factored(ops: DenseOperands, v, clip=None, pin_input: bool = False):
-    """The same [C, N] right-hand side in the kernel's factored form, from the
-    kernel's operands: no division per candidate but ``1 / Q``.
+    """The same [C, N] right-hand side in the kernels' factored form, from the
+    kernels' operands: no division per candidate but ``1 / Q``.
 
     With ``a_j = s2_j / (2 h_j^2)``: per node ``f0h = f0 / h``, ``Gh = G / h``,
     ``Q0 = sum_j 2 a_j + 1e-10``, ``A0 = sum_j a_j (v+_j + v-_j)``; per
     candidate ``fh = f0h + Gh u``, ``Q = Q0 + sum_j |fh_j|``,
     ``S = sum_j |fh_j| (fh_j > 0 ? v+_j : v-_j)``,
-    ``dt = 1 / Q``, ``rhs = dt ((r + q) + exp(-beta dt) (A0 + S))``. It equals
-    ``candidate_rhs`` to float rounding; the tests hold the kernel's algebra
-    against the JAX package through it.
+    ``dt = 1 / Q``, ``rhs = dt ((r + q) + exp(-beta dt) (A0 + S))``. The
+    general entries take ``fh = fc / h`` from the per-candidate drift, and
+    ``a``, ``Q0``, ``A0`` from ``s2c`` and the cost from ``gc`` where those
+    are per candidate. It equals ``candidate_rhs`` to float rounding; the
+    tests hold the kernels' algebra against the JAX package through it.
     """
     grid = ops.grid
     vp, vm = neighbor_values(_input_values(ops, v, clip, pin_input), grid)   # [N, d]
     h = torch.as_tensor(grid.h, dtype=torch.float32, device=vp.device)
-    ih, a = 1.0 / h, ops.s2 * (0.5 / (h * h))
-    f0h, Gh = ops.f0 * ih, ops.G * ih[:, None]
+    ih = 1.0 / h
+    s2 = ops.s2 if ops.s2_k is not None else ops.s2c_k.transpose(1, 2)       # [(C,) N, d]
+    a = s2 * (0.5 / (h * h))
     Q0 = torch.sum(2.0 * a, dim=-1) + _EPS
     A0 = torch.sum(a * (vp + vm), dim=-1)
-    fh = f0h[None] + torch.einsum("ndm,cm->cnd", Gh, ops.uc)                 # [C, N, d]
+    if ops.general:
+        fh = ops.fc_k.transpose(1, 2) * ih                                    # [C, N, d]
+    else:
+        fh = (ops.f0 * ih)[None] + torch.einsum("ndm,cm->cnd", ops.G * ih[:, None], ops.uc)
+    g = ops.gc if ops.gc is not None else ops.r[:, None] + ops.q[None]
     af = torch.abs(fh)
-    dt = 1.0 / (Q0[None] + torch.sum(af, dim=-1))
+    dt = 1.0 / (Q0 + torch.sum(af, dim=-1))
     S = torch.sum(af * torch.where(fh > 0, vp[None], vm[None]), dim=-1)
-    return dt * ((ops.r[:, None] + ops.q[None]) + torch.exp(-ops.problem.beta * dt) * (A0 + S))
+    return dt * (g + torch.exp(-ops.problem.beta * dt) * (A0 + S))
 
 
 def dense_backup_reference(ops: DenseOperands, v, clip=None, pin_input: bool = False):
@@ -238,6 +301,11 @@ def _lib() -> ctypes.CDLL:
     lib.c3sc_dense_backup.restype = i32
     lib.c3sc_dense_evaluate.argtypes = [ptr] * 11 + [i32] * 3 + desc + [f32, i32, ptr]
     lib.c3sc_dense_evaluate.restype = i32
+    lib.c3sc_dense_backup_general.argtypes = ([ptr] * 11 + [i32] * 2 + desc
+                                              + [f32, i32, f32, f32, i32, i32, ptr])
+    lib.c3sc_dense_backup_general.restype = i32
+    lib.c3sc_dense_evaluate_general.argtypes = [ptr] * 11 + [i32] * 2 + desc + [f32, i32, ptr]
+    lib.c3sc_dense_evaluate_general.restype = i32
     return lib
 
 
@@ -276,12 +344,15 @@ def dense_backup(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
     """One improve sweep: (vnew [*grid.shape] f32, best [N] int32 argmin).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``dense_backup.launches`` counts those launches). The kernel decodes
-    with 64-bit indices for grids of 2^31 nodes and more; ``_wide_index`` is
-    the tests' switch that makes it do so on a small grid.
+    (``dense_backup.launches`` counts those launches), or, for general
+    operands, ``dense_backup_general``. The kernel decodes with 64-bit
+    indices for grids of 2^31 nodes and more; ``_wide_index`` is the tests'
+    switch that makes it do so on a small grid.
     """
     if v.device.type == "cpu":
         return dense_backup_reference(ops, v, clip, pin_input)
+    if ops.general:
+        return dense_backup_general(ops, v, clip, pin_input, _wide_index=_wide_index)
     _require_cuda(v, "dense_backup")
     ptrs, scalars = _kernel_inputs(ops, v)
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
@@ -301,15 +372,16 @@ def dense_evaluate(ops: DenseOperands, v, best, *, _wide_index: bool = False):
     vnew [*grid.shape], pinned on terminal nodes.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``dense_evaluate.launches`` counts those launches).
+    (``dense_evaluate.launches`` counts those launches), or, for general
+    operands, ``dense_evaluate_general``.
     """
     if v.device.type == "cpu":
         return dense_evaluate_reference(ops, v, best)
+    if ops.general:
+        return dense_evaluate_general(ops, v, best, _wide_index=_wide_index)
     _require_cuda(v, "dense_evaluate")
     ptrs, scalars = _kernel_inputs(ops, v)
-    if best.dtype != torch.int32 or best.numel() != v.numel() or best.device != v.device \
-            or not best.is_contiguous():
-        raise ValueError("best must be a contiguous int32 tensor of one index per node")
+    _check_policy(v, best)
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
     _launch("c3sc_dense_evaluate", v, v.data_ptr(), best.data_ptr(), *ptrs, vnew.data_ptr(),
             *scalars, int(_wide_index))
@@ -318,3 +390,67 @@ def dense_evaluate(ops: DenseOperands, v, best, *, _wide_index: bool = False):
 
 
 dense_evaluate.launches = 0
+
+
+def _check_policy(v, best):
+    if best.dtype != torch.int32 or best.numel() != v.numel() or best.device != v.device \
+            or not best.is_contiguous():
+        raise ValueError("best must be a contiguous int32 tensor of one index per node")
+
+
+def _require_general(ops: DenseOperands, name):
+    if not ops.general:
+        raise ValueError(f"{name}: operands of a structured problem take the structured entry")
+
+
+def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
+                         _wide_index: bool = False):
+    """One improve sweep on general operands (a problem without all five
+    declarations): (vnew [*grid.shape] f32, best [N] int32), with
+    ``dense_backup``'s ``clip`` and ``pin_input`` switches.
+
+    CPU tensors take the plain version (``dense_backup_reference``, through
+    ``mca.transition_all_controls``'s per-candidate branch); CUDA tensors
+    launch the kernel (``dense_backup_general.launches`` counts those
+    launches). 64-bit offsets are taken when C d N >= 2^31; ``_wide_index``
+    forces them.
+    """
+    if v.device.type == "cpu":
+        return dense_backup_reference(ops, v, clip, pin_input)
+    _require_cuda(v, "dense_backup_general")
+    _require_general(ops, "dense_backup_general")
+    ptrs, scalars = _kernel_inputs(ops, v)
+    vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
+    best = torch.empty(v.numel(), dtype=torch.int32, device=v.device)
+    lo, hi = (float(clip[0]), float(clip[1])) if clip is not None else (0.0, 0.0)
+    _launch("c3sc_dense_backup_general", v, v.data_ptr(), *ptrs, vnew.data_ptr(),
+            best.data_ptr(), *scalars, int(clip is not None), lo, hi, int(pin_input),
+            int(_wide_index))
+    dense_backup_general.launches += 1
+    return vnew.view(ops.grid.shape), best
+
+
+dense_backup_general.launches = 0
+
+
+def dense_evaluate_general(ops: DenseOperands, v, best, *, _wide_index: bool = False):
+    """One fixed-policy sweep on general operands under candidate indices
+    best [N] (int32): vnew [*grid.shape], pinned on terminal nodes.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``dense_evaluate_general.launches`` counts those launches).
+    """
+    if v.device.type == "cpu":
+        return dense_evaluate_reference(ops, v, best)
+    _require_cuda(v, "dense_evaluate_general")
+    _require_general(ops, "dense_evaluate_general")
+    ptrs, scalars = _kernel_inputs(ops, v)
+    _check_policy(v, best)
+    vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
+    _launch("c3sc_dense_evaluate_general", v, v.data_ptr(), best.data_ptr(), *ptrs,
+            vnew.data_ptr(), *scalars, int(_wide_index))
+    dense_evaluate_general.launches += 1
+    return vnew.view(ops.grid.shape)
+
+
+dense_evaluate_general.launches = 0

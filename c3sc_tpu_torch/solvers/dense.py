@@ -10,7 +10,11 @@ solve runs on the CUDA device unless the caller passes ``device="cpu"``.
 
 The JAX package's ``_precompute`` stores the stencil of every candidate as
 [C, N, d] tensors; here ``make_dense_operands`` keeps only the x-only
-declarations and the sweep recomputes the stencil.
+declarations and the sweep recomputes the stencil. A problem without all
+five declarations (the glider) keeps its per-candidate drift [C, d, N]
+instead, and on CUDA its sweeps run K1's general entries
+(``dense_backup_general``, ``dense_evaluate_general``), to which
+``dense_backup`` and ``dense_evaluate`` route its operands.
 """
 
 from __future__ import annotations

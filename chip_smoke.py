@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive the c3sc_tpu_torch dense Bellman path, the fused TT value
-iteration and the receding-horizon control path once on one NVIDIA GPU.
+iteration, the receding-horizon control path, the flagship accuracy stack
+and the remaining models once on one NVIDIA GPU.
 
     python3 chip_smoke.py              every phase
     python3 chip_smoke.py --phases F   phases A, B, D at 9^6 and F (while developing)
     python3 chip_smoke.py --phases G   phases A, B, D at 9^6 and G (while developing)
     python3 chip_smoke.py --phases H   phases A, B, D at 9^6 and H at the recipe's full
-                                       depth (6 cycles, 256 iLQR rollouts)
+                                       depth (both fused bases, 6 cycles, 256 iLQR rollouts)
+    python3 chip_smoke.py --phases I   phases A, B and I at the 7D recipe's full depth
+                                       (both fused bases, 3 cycles, 128 closed loops)
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -36,14 +39,16 @@ non-zero, with no result line):
          iteration) iterations, active backups/s, warm 3-iteration replan
      F.4 torch.profiler over 10 warm iterations at 31^6 rmax 16: device-busy
          time, idle share, and the device time and launches of the two blocks
-         of a core-step (fiber_backup, core_fit); no host sync inside the window
+         of a core-step (fiber_backup, core_fit); no host sync nor scalar host read in the window
      F.5 phase E's rollouts on the TT value of F.2 through tt_lerp_eval
   G  the control path: continuous refinement, fused MPC, tracking re-solves
      G.1 refinement (refine_steps=2): (a) dense_policy on D's 9^6 value, its
          argmin through K1; every node's refined RHS at most its candidate's;
          (b) phase E's rollouts under the refined implicit policy; (d) F.2's
          9^6 solve refined under the CUDA graph, interior q95 <= 0.25; (c) one
-         refined fiber backup per core, card against CPU within 1e-4 x max|v|
+         refined fiber backup per core, card against CPU within 1e-4 x max|v|; the
+         profile of an eager refined 9^6 iteration: no host sync and no
+         scalar read on the host (aten::item)
      G.2 fused MPC at bench.py's configuration (31^6, rmax 16, 25 candidates,
          6 replans of 3 iterations, 256 rollouts x 25 steps each; the cold
          solve cut from 800 to 400 iterations): graphed step_fn against
@@ -60,12 +65,15 @@ non-zero, with no result line):
          deployed composite at all 531,441 nodes against quad_dense_v9.npz,
          interior q95 within 1e-4 of the JAX package's 0.028826; the patch
          re-solved from the TT's faces by solve_local_patch through K1
-     H.2 the recipe from F.2's rank-16 fused TT (solved here under --phases H):
-         re-padded to rank 64, cycles of [two-site polish, 10 steps + coarse-grid
-         correction] (6 under --phases H, 2 in the whole script), gated level and
-         mode corrections with a 24 x 250 greedy probe, two_level_solve (2
-         cycles, margin 1); interior q95 per stage, below the fused base's at
-         the end (and <= 0.05 at full depth)
+     H.2 the recipe from a rank-16 fused TT: in the whole script F.2's solve
+         (the graphed variant: no probe, 900 iterations); under --phases H the
+         recipe's own base (eager, the probe harvest of 32 x 500 steps, up to
+         1,500 iterations), with the graphed variant solved and scored beside
+         it. Re-padded to rank 64, cycles of [two-site polish, 10 steps +
+         coarse-grid correction] (6 under --phases H, 2 in the whole script),
+         gated level and mode corrections with a 24 x 250 greedy probe,
+         two_level_solve (2 cycles, margin 1); interior q95 per stage, below
+         the fused base's at the end (and <= 0.05 at full depth)
      H.3 deployment on the composite and on the dense value under common random
          numbers: greedy closed loops 256 x 400 steps at dt 0.01 (x0 as
          quad_dense_oracle.py draws it), then receding-horizon iLQR (horizon 128,
@@ -73,9 +81,38 @@ non-zero, with no result line):
          the whole script, 256 under --phases H), each replan a CUDA graph
      then K1 held against its plain version on the patch's 7^6 sub-box (one
      sweep, and the whole patch solve)
-K1's launch counts are set to 0 before each of D+E, F, G and H and read
-after it (each must launch both entries, H the improve entry); the kernels
-line sums them. Then one JSON line of the kernels, and as the last line
+  I  the remaining models, each held to the JAX package's own bars:
+     I.1 K1 against its plain version at the users' widths (outside the
+         counted run): the structured entry at (3, 1) on Dubins 41^3 and at
+         (7, 2) on quadcopter7 9^7 (25 candidates); the general entries on the
+         glider 41^4 (9 candidates; its drift is undeclared) and on the
+         pendulum at 1001^2 stripped of every declaration (per-candidate
+         variances and cost); max difference, ms a sweep, bounds
+     I.2 tests/test_dubins.py on the card ((25, 25, 16), beta 0.5, 7
+         candidates): fused rmax 20 against dense_vi, q95 < 0.05 and mean <
+         0.02; closed loops of its rmax-28 solve under shared noise, cost
+         within 1 %, candidate agreement >= 94 %; dense_vi at the CLI's 41^3
+     I.3 tests/test_glider_parity.py on the card ((15, 11, 11, 11), 9
+         candidates, the dense oracle through the general entries): fused rmax
+         16 q95 < 0.05, closed-loop control deviation < 1 % of the range, cost
+         within 2 %; dense_vi at the CLI's 41^4 (general entries)
+     I.4 experiments/quad7_northstar.py at 9^7 with 25 candidates: the full
+         9^7 dense oracle through K1 first; fused base, cycles of [10 polish
+         steps at rank 64 + coarse correction on 7^7], the gated level
+         correction, the 7^7 patch at margin 1, the sampled Bellman residual
+         (8,192 nodes), greedy closed loops (x0 from default_rng(4242), 400
+         steps at dt 0.01) on the composite and on the oracle, the sub-box
+         oracle (tol 1e-6, 4,000 sweeps, scored 2 layers in); bars of
+         NORTHSTAR7.json (survival >= 0.9, residual <= 0.02, inner q95 <=
+         0.05); interior q95 of each fused base, the polished TT and the
+         composite against the full oracle (reported). --phases I: the
+         recipe's base (eager, probe harvest, <= 1,500 iterations) beside the
+         graphed variant (<= 1,500), 3 cycles, 128 loops. Cuts in the whole
+         script: the graphed base only (<= 600 iterations), 1 cycle, 32 loops
+K1's launch counts (all four entries) are set to 0 before each of D+E, F,
+G, H and I and read after it (each must launch the structured entries, H
+the improve entry, I all four); the kernels line sums them. Then one JSON
+line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -104,6 +141,8 @@ SEED0_Q95 = 0.028826  # the JAX package's interior q95 of the committed seed-0 c
 FLAGSHIP_Q95_BAR = 0.05   # the deployed composite at the recipe's full depth (JAX seeds 0.012-0.032)
 MPC_BUDGET_S = 25 * 0.01   # real time: a warm replan within the 25 x 0.01 s it plans for
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
+KERNELS = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general")
+NORTHSTAR7 = os.path.join(REPO, "NORTHSTAR7.json")  # the JAX package's 7D record (a TPU run)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 DEVICE = torch.device("cuda")
@@ -186,11 +225,36 @@ def sweep_bounds(ops):
     per_node = d * (7 + du) + 1                        # f0h, Gh, a, Q0, A0
     per_cand = d * (2 * du + 3) + 8                    # fh, Q, S, then dt, exp and the sum
     n_term = int(ops.t_mask.sum())                     # evaluate only copies t_val there
-    work = {
+    return _bounds({
         "dense_backup": (N * (node_in + 8) + cand, N * (per_node + C * per_cand)),
         "dense_evaluate": ((N - n_term) * (node_in + 8) + n_term * 9 + cand,
                            (N - n_term) * (per_node + per_cand)),
-    }
+    })
+
+
+def general_sweep_bounds(ops):
+    """sweep_bounds for the general entries: each node reads its per-candidate
+    operands (fc, and s2c and gc where those are per candidate) once for
+    every candidate in improve and for its policy's candidate in evaluate."""
+    N, d = ops.x.shape
+    C = ops.uc.shape[0]
+    node_in = 4 + 1 + 4 + (4 * d if ops.s2_k is not None else 0) + (4 if ops.q is not None else 0)
+    cand_in = 4 * d + (4 * d if ops.s2c_k is not None else 0) + (4 if ops.gc is not None else 0)
+    cand = 4 * C if ops.r is not None else 0           # r
+    diffusion = 6 * d + 1                              # a, Q0, A0
+    per_node = diffusion if ops.s2_k is not None else 0
+    per_cand = 5 * d + 8 + (diffusion if ops.s2c_k is not None else 0)
+    n_term = int(ops.t_mask.sum())
+    return _bounds({
+        "dense_backup_general": (N * (node_in + C * cand_in + 8) + cand,
+                                 N * (per_node + C * per_cand)),
+        "dense_evaluate_general": ((N - n_term) * (node_in + cand_in + 8) + n_term * 9 + cand,
+                                   (N - n_term) * (per_node + per_cand)),
+    })
+
+
+def _bounds(work):
+    """{name: (bytes, float32 operations)} -> the least times on the card."""
     out = {}
     for name, (nbytes, flops) in work.items():
         t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S
@@ -200,8 +264,9 @@ def sweep_bounds(ops):
     return out
 
 
-def compare_sweep(ops, v, clip, pin_input, label):
-    """Kernel against plain version for one improve and one evaluate sweep."""
+def compare_sweep(ops, v, clip, pin_input, label, tag="C"):
+    """Kernel against plain version for one improve and one evaluate sweep
+    (the structured entries, or the general ones for general operands)."""
     from c3sc_tpu_torch.ops import dense_backup as db
 
     kv, kb = db.dense_backup(ops, v, clip, pin_input)
@@ -218,7 +283,7 @@ def compare_sweep(ops, v, clip, pin_input, label):
     pe = db.dense_evaluate_reference(ops, v, pb)
     eerr = (ke - pe).abs()
     ebad = int((eerr > VALUE_BAR * pe.abs().clamp(min=1.0)).sum())
-    log(f"[C] {label}: improve max|diff| {err.max().item():.3e} (over bar: {bad}), "
+    log(f"[{tag}] {label}: improve max|diff| {err.max().item():.3e} (over bar: {bad}), "
         f"argmin differs off near-ties: {best_bad} (near-ties {int(near_tie.sum())}); "
         f"evaluate max|diff| {eerr.max().item():.3e} (over bar: {ebad})")
     if bad or best_bad or ebad or not torch.isfinite(kv).all() or not torch.isfinite(ke).all():
@@ -612,9 +677,9 @@ def profile_iterations(solver, carry, iters=10, label="", tag="F.4"):
     """torch.profiler over ``iters`` warm iterations: wall, device-busy time and
     idle share of the window; device time and launches under the two
     ``record_function`` ranges of a core-step; the host syncs inside the
-    window (there must be none). ``.item()`` of a CPU tensor (a Python float
-    written into a CUDA tensor goes through one) waits for nothing and is
-    counted apart."""
+    window and the scalar reads on the host (``aten::item``, counted apart:
+    a Python float written into a CUDA tensor reads a CPU tensor, which
+    waits for nothing but costs host time). There must be neither.""" 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -684,6 +749,8 @@ def profile_iterations(solver, carry, iters=10, label="", tag="F.4"):
         f"{host_reads or 'none'}")
     if syncs:
         raise AssertionError(f"an iteration reads the device on the host: {syncs}")
+    if host_reads:
+        raise AssertionError(f"an iteration reads scalars on the host: {host_reads}")
     return dict(wall_ms=wall / iters, busy_ms=busy / iters, idle=1 - busy / wall,
                 dev_ms={k: v / iters for k, v in dev_ms.items()},
                 launches={k: v / iters for k, v in launches.items()}), carry
@@ -1025,18 +1092,28 @@ def phase_h1_committed():
     return ops, v0, patch.v.contiguous()
 
 
-def _recipe_fused_base(v9):
-    """F.2's solve: the rank-16 fused TT of the 9^6 quadcopter."""
+def fused_bases(prob, grid, uc, recipe=True, graphed_iters=900):
+    """The flagship's rank-16 fused bases (seed 0, tol 2e-4, patience 25), by
+    label: the recipe's (experiments/quad_dense_oracle.py:160-161 and
+    quad7_northstar.py:76-79: eager, up to 1,500 iterations, the probe
+    harvest of 32 rollouts x 500 steps; when ``recipe``), then the graphed
+    variant (a CUDA graph of one iteration, no probe, ``graphed_iters``)."""
     from c3sc_tpu_torch.solvers import fused_tt_vi
 
-    prob, grid, uc, _ = _flagship_setup()
-    return fused_tt_vi(prob, grid, controls=uc, rmax=16, seed=0, tol=2e-4, max_iters=900,
-                       patience=25, probe_rollouts=0, device=DEVICE, cuda_graph=True)
+    kw = dict(controls=uc, rmax=16, seed=0, tol=2e-4, patience=25, device=DEVICE)
+    bases = {}
+    if recipe:
+        bases["recipe: eager, probe harvest, <= 1500 iterations"] = fused_tt_vi(
+            prob, grid, max_iters=1500, probe_rollouts=32, probe_steps=500, probe_dt=0.01, **kw)
+    bases[f"graphed variant: no probe, <= {graphed_iters} iterations"] = fused_tt_vi(
+        prob, grid, max_iters=graphed_iters, probe_rollouts=0, cuda_graph=True, **kw)
+    return bases
 
 
-def phase_h2_recipe(fused, cycles, rmax=64, steps=10, seed=0):
-    """H.2: quad_dense_oracle.py's recipe from a fused base. Returns the
-    deployed composite's value function and its interior q95."""
+def phase_h2_recipe(fused, cycles, rmax=64, steps=10, seed=0, label="graphed variant"):
+    """H.2: quad_dense_oracle.py's recipe from a fused base (``label`` names
+    which). Returns the deployed composite's value function and its
+    interior q95."""
     from c3sc_tpu_torch.ops.tt import _repad, tt_lerp_eval
     from c3sc_tpu_torch.solvers.gating import gated_apply, make_greedy_probe
     from c3sc_tpu_torch.solvers.local_patch import make_patched_value_fn, two_level_solve
@@ -1051,7 +1128,7 @@ def phase_h2_recipe(fused, cycles, rmax=64, steps=10, seed=0):
             return interior_q95(prob, grid, v, vd)[0]
 
     q_fused = tt_q95(fused.v)
-    log(f"[H.2] fused base (rmax {fused.v.rmax}, {fused.iterations} iterations, "
+    log(f"[H.2] fused base, {label} (rmax {fused.v.rmax}, {fused.iterations} iterations, "
         f"{fused.wall_time:.2f} s, "
         f"ranks {fused.v.ranks.tolist()}): interior q95 {q_fused:.4f}")
     kernel = make_bellman_kernel(prob, grid, uc, chunk=32768)
@@ -1203,38 +1280,377 @@ def compare_patch_kernel(ops, v0, stored, tol=1e-5, max_sweeps=2000, chunk=50):
 
 
 def phase_h_flagship(v9, fused=None, cycles=2, n_mpc=64):
-    """Phase H; returns what compare_patch_kernel needs."""
+    """Phase H; returns what compare_patch_kernel needs. Without ``fused``
+    (``--phases H``) it solves both fused bases, reports both, and runs the
+    recipe from the recipe's base; with it (the whole script: F.2's solve,
+    the graphed variant) it runs the recipe from that."""
     h1 = phase_h1_committed()
+    label = "graphed variant (F.2's solve: no probe, <= 900 iterations)"
     if fused is None:
-        fused = _recipe_fused_base(v9)
-    vfn, _ = phase_h2_recipe(fused, cycles)
+        prob, grid, uc, vd = _flagship_setup()
+        bases = fused_bases(prob, grid, uc)
+        for name, sol in bases.items():
+            with torch.no_grad():
+                q = interior_q95(prob, grid, sol.v, vd)[0]
+            log(f"[H.2] fused base, {name}: {sol.iterations} iterations in {sol.wall_time:.2f} s, "
+                f"probe_cost {sol.probe_cost:.4f}, interior q95 {q:.4f} (JAX seed 0: 0.1196)")
+        label, fused = next(iter(bases.items()))
+    vfn, _ = phase_h2_recipe(fused, cycles, label=label)
     phase_h3_deploy(vfn, n_mpc=n_mpc)
     return h1
 
 
-def main_fused_only():
-    """Phases A, B and F, with phase D cut to its 9^6 solve (F.2 needs it)."""
-    phase_a_environment()
-    phase_b_build()
-    phase_f_fused(phase_d_solve(sizes=(9,))[9])
-    return 0
+# ---- phase I: the remaining models ----------------------------------------------------
+
+def _bare(prob):
+    """The problem with every structure declaration stripped: its sweeps take
+    the general entries with per-candidate variances and costs."""
+    import dataclasses
+
+    return dataclasses.replace(prob, drift_f0=None, drift_G=None, sigma2_x=None, cost_q=None,
+                               cost_r=None, name=prob.name + " without declarations")
+
+
+def phase_i1_kernels():
+    """I.1: K1's entries at the widths the three models' users run, against the
+    plain version (outside the counted run): the structured entry at (3, 1)
+    (Dubins 41^3, 9 candidates) and (7, 2) (quadcopter7 9^7, 25 candidates),
+    the general entries on the glider (41^4, 9 candidates) and on the
+    pendulum without declarations (1001^2, 9 candidates: per-candidate
+    variances and cost). Returns (max differences, the glider's times,
+    the glider's bounds)."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    errs = dict.fromkeys(KERNELS, 0.0)
+    glider = {}
+    cases = (("dubins", make_problem("dubins"), 41, 9),
+             ("quadcopter7", make_problem("quadcopter7", **QUAD), 9, 5),
+             ("glider", make_problem("glider"), 41, 9),
+             ("pendulum", _bare(make_problem("pendulum")), 1001, 9))
+    for name, prob, n, per_dim in cases:
+        grid = prob.default_grid(n)
+        uc = prob.control_candidates(per_dim)
+        ops, t_ops = _synced_s(lambda: db.make_dense_operands(prob, grid, uc, DEVICE))
+        kind = "general" if ops.general else "structured"
+        label = f"{prob.name} {n}^{prob.dx}, {len(uc)} candidates, {kind} entries"
+        log(f"[I.1] {label}: operands ({ops.x.shape[0]} nodes) built in {t_ops:.3f} s")
+        v = torch.as_tensor(np.random.default_rng(0).uniform(0, 5, grid.shape),
+                            dtype=torch.float32, device=DEVICE)
+        names = KERNELS[2:] if ops.general else KERNELS[:2]
+        for sem, (clip, pin) in (("Pallas", (prob.value_bounds, True)),
+                                 ("dense_vi", (None, False))):
+            e = compare_sweep(ops, v, clip, pin, f"{label}, {sem} semantics", tag="I.1")
+            errs[names[0]], errs[names[1]] = max(errs[names[0]], e[0]), max(errs[names[1]], e[1])
+        _, best = db.dense_backup(ops, v)
+        calls = dict(backup_kernel=lambda: db.dense_backup(ops, v),
+                     backup_plain=lambda: db.dense_backup_reference(ops, v),
+                     evaluate_kernel=lambda: db.dense_evaluate(ops, v, best),
+                     evaluate_plain=lambda: db.dense_evaluate_reference(ops, v, best))
+        times = {k: loop_ms(fn, 100 if k.endswith("kernel") else 10) for k, fn in calls.items()}
+        bounds = (general_sweep_bounds if ops.general else sweep_bounds)(ops)
+        log(f"[I.1] {label}: per-sweep ms (loop of 100 kernel or 10 plain launches between one "
+            "event pair): " + ", ".join(f"{k} {x:.4f}" for k, x in times.items())
+            + "; bounds " + json.dumps(bounds))
+        if name == "glider":
+            glider = dict(times=times, bounds=bounds)
+        del ops, v, best, calls
+        torch.cuda.empty_cache()
+    return errs, glider["times"], glider["bounds"]
+
+
+def closed_loop_parity(prob, grid, vfn_ref, vfn, controls, x0, dt, n_steps, noise_seed):
+    """Greedy closed loops on two value functions under one noise tensor (the
+    JAX tests' shared key): (control deviation / control range over steps
+    where both live, per-step candidate agreement, mean cost on the
+    reference, mean cost on vfn)."""
+    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+
+    uc = torch.as_tensor(controls, dtype=torch.float32, device=DEVICE)
+    noise = torch.randn((n_steps, x0.shape[0], prob.dw), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(noise_seed))
+    trs = []
+    for fn in (vfn_ref, vfn):
+        with torch.no_grad():
+            trs.append(rollout(prob, grid, make_implicit_policy(prob, grid, fn, uc), x0, dt,
+                               n_steps, noise=noise))
+    ref, tr = trs
+    alive = (ref.alive[:-1] & tr.alive[:-1])[..., None]
+    du = (tr.us - ref.us).abs()
+    dev = ((du * alive).sum() / alive.sum().clamp(min=1)).item() / (prob.uub[0] - prob.ulb[0])
+    agree = ((du < 1e-6) | ~alive).float().mean().item()
+    return dev, agree, ref.cost.mean().item(), tr.cost.mean().item()
+
+
+def node_errors(grid, v_tt, v_dense):
+    """|v_tt - v_dense| / max|v_dense| at every node (the JAX tests' measure)."""
+    from c3sc_tpu_torch.ops.tt import tt_gather_eval
+
+    v = tt_gather_eval(v_tt, grid.node_indices(DEVICE))
+    if not torch.isfinite(v).all():
+        raise AssertionError("a TT value is not finite")
+    return (v - v_dense.reshape(-1)).abs() / v_dense.abs().max()
+
+
+def _dense_at_width(prob, n, per_dim, tol, max_outer, label):
+    """dense_vi at a user's width: wall, sweeps, residual, peak device memory."""
+    from c3sc_tpu_torch.solvers import dense_vi
+
+    grid = prob.default_grid(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sol, wall = _synced_s(lambda: dense_vi(prob, grid, n_controls=per_dim, tol=tol,
+                                           max_outer=max_outer, chunk=50, device=DEVICE))
+    if not torch.isfinite(sol.v).all():
+        raise AssertionError(f"{label}: the dense value is not finite")
+    log(f"[{label}] dense_vi {prob.name} {grid.shape} ({sol.v.numel()} nodes), "
+        f"{per_dim ** prob.du} candidates, tol {tol}: {sol.sweeps} outer sweeps in {wall:.2f} s, "
+        f"residual {sol.residual:.3e}, stopped at the f32 plateau {sol.floored}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return sol
+
+
+def phase_i2_dubins():
+    """I.2: tests/test_dubins.py's configuration on the card (beta 0.5, grid
+    (25, 25, 16), 7 candidates), then dense_vi at the CLI's width."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.ops.tt import tt_lerp_eval
+    from c3sc_tpu_torch.solvers import dense_vi, fused_tt_vi
+
+    prob = make_problem("dubins", beta=0.5)
+    grid = prob.default_grid((25, 25, 16))
+    uc = prob.control_candidates(7)
+    dense, wall = _synced_s(lambda: dense_vi(prob, grid, controls=uc, tol=1e-4, max_outer=200,
+                                             chunk=50, device=DEVICE))
+    sol = fused_tt_vi(prob, grid, controls=uc, rmax=20, seed=0, tol=3e-4, max_iters=1500,
+                      patience=100, device=DEVICE, cuda_graph=True)
+    err = node_errors(grid, sol.v, dense.v)
+    q95, mean = torch.quantile(err, 0.95).item(), err.mean().item()
+    log(f"[I.2] dubins (25, 25, 16), 7 candidates: dense_vi {dense.sweeps} sweeps in {wall:.2f} s "
+        f"(residual {dense.residual:.2e}); fused rmax 20: {sol.iterations} iterations in "
+        f"{sol.wall_time:.2f} s (CUDA graph), ranks {sol.v.ranks.tolist()}; |v_tt - v_dense| / "
+        f"max|v_dense| q95 {q95:.4f} (bar 0.05), mean {mean:.4f} (bar 0.02)")
+    if not (q95 < 0.05 and mean < 0.02):
+        raise AssertionError(f"dubins fused vs dense: q95 {q95:.4f}, mean {mean:.4f}")
+    # the closed loops of test_dubins_control_sequence_parity, on its own solve
+    sol = fused_tt_vi(prob, grid, controls=uc, rmax=28, eps_rank=1e-5, seed=0, tol=2e-4,
+                      max_iters=2500, patience=100, device=DEVICE, cuda_graph=True)
+    rng = np.random.default_rng(11)
+    ang, r = rng.uniform(0, 2 * np.pi, 32), rng.uniform(2.2, 3.2, 32)
+    x0 = torch.as_tensor(np.stack([r * np.cos(ang), r * np.sin(ang),
+                                   np.arctan2(-np.sin(ang), -np.cos(ang))
+                                   + rng.uniform(-0.4, 0.4, 32)], -1), dtype=torch.float32,
+                         device=DEVICE)
+    dev, agree, c_d, c_t = closed_loop_parity(
+        prob, grid, lambda p: multilinear_interp(grid, dense.v, p),
+        lambda p: tt_lerp_eval(sol.v, grid, p), uc, x0, 0.02, 300, 21)
+    rel = abs(c_t - c_d) / max(abs(c_d), 1e-9)
+    log(f"[I.2] closed loops 32 x 300 steps dt 0.02 (fused rmax 28, {sol.iterations} "
+        f"iterations): control deviation {dev:.4f} of the range (bar 0.05), candidate agreement "
+        f"{agree:.4f} (bar 0.94), mean cost dense {c_d:.4f} TT {c_t:.4f}, rel {rel:.4f} "
+        f"(bar 0.01)")
+    if not (dev < 0.05 and agree > 0.94 and rel < 0.01):
+        raise AssertionError(f"dubins closed loops: dev {dev:.4f} agree {agree:.4f} rel {rel:.4f}")
+    _dense_at_width(make_problem("dubins"), 41, 9, 1e-4, 2000, "I.2")
+
+
+def phase_i3_glider():
+    """I.3: tests/test_glider_parity.py's configuration on the card ((15, 11,
+    11, 11), 9 candidates; the dense oracle through the general entries),
+    then dense_vi at the CLI's width, 41^4 with 9 candidates."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.ops.tt import tt_lerp_eval
+    from c3sc_tpu_torch.solvers import dense_vi, fused_tt_vi
+
+    prob = make_problem("glider")
+    grid = prob.default_grid((15, 11, 11, 11))
+    uc = prob.control_candidates(9)
+    dense, wall = _synced_s(lambda: dense_vi(prob, grid, controls=uc, tol=1e-5, max_outer=2000,
+                                             chunk=100, device=DEVICE))
+    sol = fused_tt_vi(prob, grid, controls=uc, rmax=16, seed=0, tol=2e-4, max_iters=1200,
+                      eps_rank=1e-5, patience=40, device=DEVICE, cuda_graph=True)
+    q95 = torch.quantile(node_errors(grid, sol.v, dense.v), 0.95).item()
+    rng = np.random.default_rng(5)
+    x0 = torch.as_tensor(np.stack([rng.uniform(-3.2, -2.0, 32), rng.uniform(-0.5, 0.5, 32),
+                                   rng.uniform(2.0, 5.0, 32), rng.uniform(-0.5, 0.3, 32)], -1),
+                         dtype=torch.float32, device=DEVICE)
+    dev, _, c_d, c_t = closed_loop_parity(
+        prob, grid, lambda p: multilinear_interp(grid, dense.v, p),
+        lambda p: tt_lerp_eval(sol.v, grid, p), uc, x0, 0.01, 300, 7)
+    rel = abs(c_t - c_d) / max(abs(c_d), 1e-9)
+    log(f"[I.3] glider (15, 11, 11, 11), 9 candidates: dense_vi (general entries) "
+        f"{dense.sweeps} sweeps in {wall:.2f} s, residual {dense.residual:.2e} (bar 1e-4); fused "
+        f"rmax 16: {sol.iterations} iterations in {sol.wall_time:.2f} s (CUDA graph), ranks "
+        f"{sol.v.ranks.tolist()}; q95 {q95:.4f} (bar 0.05); closed loops 32 x 300 steps dt "
+        f"0.01: control deviation {dev:.4f} of the range (bar 0.01), mean cost dense {c_d:.4f} "
+        f"TT {c_t:.4f}, rel {rel:.4f} (bar 0.02)")
+    if not (dense.residual < 1e-4 and q95 < 0.05 and dev < 0.01 and rel < 0.02):
+        raise AssertionError(f"glider: residual {dense.residual:.2e} q95 {q95:.4f} dev {dev:.4f} "
+                             f"rel {rel:.4f}")
+    _dense_at_width(prob, 41, 9, 1e-5, 2000, "I.3")
+
+
+def phase_i4_quad7(full):
+    """I.4: the 7D flagship of experiments/quad7_northstar.py at 9^7 with 25
+    candidates, with the full 9^7 dense oracle (its --try-full-oracle).
+    ``full`` (--phases I): the recipe's base (eager, probe harvest, 1,500
+    iterations) beside the graphed variant, 3 cycles, 128 closed loops. The
+    whole script cuts it to the graphed base (600 iterations), 1 cycle and
+    32 closed loops."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.ops.tt import _repad, tt_lerp_eval
+    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+    from c3sc_tpu_torch.solvers import bellman_residual_sample, dense_vi
+    from c3sc_tpu_torch.solvers.gating import gated_apply
+    from c3sc_tpu_torch.solvers.local_patch import make_patched_value_fn, solve_local_patch
+    from c3sc_tpu_torch.solvers.polish import level_correct, tt_polish
+    from c3sc_tpu_torch.solvers.ttvi import make_bellman_kernel
+    from c3sc_tpu_torch.solvers.twogrid import coarse_correct
+
+    cycles, n_roll = (3, 128) if full else (1, 32)
+    prob = make_problem("quadcopter7", **QUAD)
+    grid = prob.default_grid(9)
+    uc = prob.control_candidates(5)
+    with open(NORTHSTAR7) as f:
+        ref = json.load(f)
+
+    # the full dense oracle, first, so that every stage is scored against it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oracle, wall = _synced_s(lambda: dense_vi(prob, grid, controls=uc, tol=1e-5, max_outer=3000,
+                                              chunk=25, eval_sweeps=10, device=DEVICE))
+    vd = oracle.v
+    log(f"[I.4] full 9^7 dense oracle (dense_vi, K1 at (7, 2), {vd.numel()} nodes x 25 "
+        f"candidates): {oracle.sweeps} outer sweeps in {wall:.2f} s, residual "
+        f"{oracle.residual:.3e}, stopped at the f32 plateau {oracle.floored}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; the JAX package never solved it "
+        f"(NORTHSTAR7.json oracle_full: {ref['oracle_full']})")
+    if not (torch.isfinite(vd).all() and (oracle.residual < 1e-5 or oracle.floored)):
+        raise AssertionError(f"9^7 oracle: residual {oracle.residual:.3e}")
+
+    def tt_q95(v):
+        with torch.no_grad():
+            return interior_q95(prob, grid, v, vd)[0]
+
+    bases = fused_bases(prob, grid, uc, recipe=full, graphed_iters=1500 if full else 600)
+    q_bases = {}
+    for name, sol in bases.items():
+        q_bases[name] = tt_q95(sol.v)
+        log(f"[I.4] fused base, {name}: {sol.iterations} iterations in {sol.wall_time:.2f} s, "
+            f"ranks {sol.v.ranks.tolist()}, probe_cost {sol.probe_cost:.4f}; interior q95 "
+            f"against the oracle {q_bases[name]:.4f}")
+    label, fsol = next(iter(bases.items()))
+
+    kernel = make_bellman_kernel(prob, grid, uc, chunk=32768)
+    v, state = _repad(fsol.v, 64), None
+    t_cycles = time.perf_counter()
+    for cyc in range(cycles):
+        t0 = time.perf_counter()
+        psol = tt_polish(prob, grid, uc, v, rmax=64, schedule=((10, 64),), check_every=4,
+                         kernel=kernel, state=state,
+                         generator=torch.Generator().manual_seed(100 + cyc))
+        v, state = psol.v, psol.state
+        t1 = time.perf_counter()
+        v, cinfo = coarse_correct(prob, grid, uc, v, kernel=kernel, rmax_corr=32)
+        torch.cuda.synchronize()
+        log(f"[I.4] cycle {cyc}: polish 10 steps {t1 - t0:.2f} s, coarse correction on 7^7 "
+            f"{time.perf_counter() - t1:.2f} s (bres {cinfo.bres_before:.4f} -> "
+            f"{cinfo.bres_after:.4f}, accepted {cinfo.accepted}); interior q95 {tt_q95(v):.4f}")
+    wall_cycles = time.perf_counter() - t_cycles
+    v, gate = gated_apply(prob, grid, uc, v,
+                          lambda vt: level_correct(prob, grid, uc, vt, kernel=kernel)[0],
+                          name="level", kernel=kernel)
+    q_polished = tt_q95(v)
+    vfn_tt = lambda p: tt_lerp_eval(v, grid, p)  # noqa: E731
+    patch, wall_patch = _synced_s(lambda: solve_local_patch(prob, grid, vfn_tt, uc, margin=1,
+                                                            tol=1e-5, device=DEVICE))
+    vfn_prod = make_patched_value_fn(grid, vfn_tt, patch)
+    q_comp = field_q95(prob, composite_at_nodes(grid, vfn_prod), vd)[0]
+    bres, _ = bellman_residual_sample(prob, grid, uc, v, n_samples=8192)
+    bres = bres.item()
+
+    # greedy closed loops, x0 as quad7_northstar.py draws it, one noise tensor
+    rng = np.random.default_rng(4242)
+    x0 = torch.as_tensor(0.4 * rng.uniform(-1, 1, (n_roll, 7))
+                         * np.asarray([2.0, 2.0, 1.0, 3.0, 3.0, 4.0, 1.5]),
+                         dtype=torch.float32, device=DEVICE)
+    noise = torch.randn((400, n_roll, prob.dw), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(1000))
+    loops = {}
+    for name, fn in (("composite", vfn_prod), ("dense oracle",
+                                                lambda p: multilinear_interp(grid, vd, p))):
+        pol = make_implicit_policy(prob, grid, fn, torch.as_tensor(uc, dtype=torch.float32,
+                                                                   device=DEVICE))
+        with torch.no_grad():
+            tr, w = _synced_s(lambda: rollout(prob, grid, pol, x0, 0.01, 400, noise=noise))
+        if not torch.isfinite(tr.cost).all():
+            raise AssertionError(f"7D closed loops on the {name}: costs not finite")
+        loops[name] = (tr.cost.mean().item(), tr.alive[-1].float().mean().item(), w)
+
+    # the independent sub-box oracle: the same operator on the centred 7^7
+    # sub-box, TT faces, tol 1e-6, scored 2 node layers in
+    po, wall_po = _synced_s(lambda: solve_local_patch(prob, grid, vfn_tt, uc, margin=1, tol=1e-6,
+                                                      max_sweeps=4000, device=DEVICE))
+    inner = tuple(slice(2, n - 2) for n in po.subgrid.shape)
+    v_sub = composite_at_nodes(po.subgrid, vfn_tt)
+    rel_in = ((v_sub[inner] - po.v[inner]).abs() / (po.v.max() - po.v.min())).reshape(-1)
+    q_in = torch.quantile(rel_in, 0.95).item()
+    (c_p, s_p, w_p), (c_o, s_o, _) = loops["composite"], loops["dense oracle"]
+    jp = ref["production"]
+    log(f"[I.4] recipe from the {label} base: {cycles} cycles in {wall_cycles:.2f} s, level gate "
+        f"{'accepted' if gate.accepted else 'rejected'} (bres {gate.bres_before:.4f} -> "
+        f"{gate.bres_after:.4f}), patch {po.subgrid.shape} margin 1: {patch.sweeps} sweeps in "
+        f"{wall_patch:.2f} s, residual {patch.residual:.2e}")
+    log(f"[I.4] interior q95 against the full 9^7 oracle: fused base "
+        + ", ".join(f"({k}) {q:.4f}" for k, q in q_bases.items())
+        + f" -> polished TT {q_polished:.4f} -> deployed composite {q_comp:.4f} (no JAX number)")
+    log(f"[I.4] bars of NORTHSTAR7.json: sub-box oracle ({po.sweeps} sweeps in {wall_po:.2f} s, "
+        f"residual {po.residual:.1e}) inner q95 {q_in:.4f} (bar "
+        f"{ref['tolerance']['oracle_inner_q95_max']}; JAX {ref['oracle']['inner_value_q95']:.4f}), "
+        f"sampled Bellman residual {bres:.4f} (bar {ref['tolerance']['bellman_residual_max']}; "
+        f"JAX {jp['bellman_residual_sampled']:.4f}), greedy {n_roll} x 400 steps dt 0.01 "
+        f"survival {s_p:.4f} (bar {ref['tolerance']['survival_min']}; JAX {jp['survival']}), mean "
+        f"cost composite {c_p:.4f} (JAX {jp['mean_cost']:.4f}) dense oracle {c_o:.4f} (survival "
+        f"{s_o:.4f}, rel {(c_p - c_o) / abs(c_o):+.4f}), wall {w_p:.2f} s. JAX's times are a "
+        "TPU's and are not compared")
+    if not (s_p >= ref["tolerance"]["survival_min"]
+            and bres <= ref["tolerance"]["bellman_residual_max"]
+            and q_in <= ref["tolerance"]["oracle_inner_q95_max"]):
+        raise AssertionError(f"7D flagship: survival {s_p:.4f}, bres {bres:.4f}, inner q95 "
+                             f"{q_in:.4f}")
+
+
+def phase_i_models(full=False):
+    """Phase I after I.1: the path that the launch counts read."""
+    marks = [time.perf_counter()]
+    for fn in (phase_i2_dubins, phase_i3_glider, lambda: phase_i4_quad7(full)):
+        fn()
+        marks.append(time.perf_counter())
+    log("[timing] phase I: " + ", ".join(f"I.{i + 2} {b - a:.1f} s"
+                                         for i, (a, b) in enumerate(zip(marks, marks[1:]))))
+
+
+def _entries():
+    """K1's four entries by name: the wrappers that count their launches."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    return {name: getattr(db, name) for name in KERNELS}
 
 
 def k1_launches():
-    from c3sc_tpu_torch.ops import dense_backup as db
-
-    return {"dense_backup": db.dense_backup.launches,
-            "dense_evaluate": db.dense_evaluate.launches}
+    return {name: fn.launches for name, fn in _entries().items()}
 
 
 def counted(label, fn, required=("dense_backup", "dense_evaluate"), totals=None):
-    """Run one path of the main run with K1's launch counts set to 0 just
-    before it and read just after; every kernel in ``required`` must have
-    been launched. Adds the counts to ``totals``; returns fn()'s result."""
-    from c3sc_tpu_torch.ops import dense_backup as db
-
-    db.dense_backup.launches = 0
-    db.dense_evaluate.launches = 0
+    """Run one path of the main run with K1's launch counts (all four
+    entries) set to 0 just before it and read just after; every kernel in
+    ``required`` must have been launched. Adds the counts to ``totals``;
+    returns fn()'s result."""
+    for entry in _entries().values():
+        entry.launches = 0
     out = fn()
     made = k1_launches()
     log(f"[{label}] K1 launches in phase {label}: {made}")
@@ -1266,7 +1682,8 @@ def main_control_only():
 
 def main_flagship_only():
     """Phases A, B and H at the recipe's full depth, with phase D cut to its
-    9^6 solve; H solves its fused base itself (F.2's configuration)."""
+    9^6 solve; H solves both fused bases itself and runs the recipe from the
+    recipe's."""
     phase_a_environment()
     phase_b_build()
     v9 = phase_d_solve(sizes=(9,))[9]
@@ -1278,12 +1695,24 @@ def main_flagship_only():
     return 0
 
 
+def main_models_only():
+    """Phases A, B and I, with I.4 at the 7D recipe's full depth."""
+    phase_a_environment()
+    phase_b_build()
+    t0 = time.perf_counter()
+    phase_i1_kernels()
+    counted("I", lambda: phase_i_models(full=True), required=KERNELS)
+    log(f"[timing] phase I {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
-    modes = {"F": main_fused_only, "G": main_control_only, "H": main_flagship_only}
+    modes = {"F": main_fused_only, "G": main_control_only, "H": main_flagship_only,
+             "I": main_models_only}
     if len(sys.argv) == 3 and sys.argv[1] == "--phases" and sys.argv[2] in modes:
         return modes[sys.argv[2]]()
     if sys.argv[1:]:
-        raise SystemExit("usage: chip_smoke.py [--phases F | --phases G | --phases H]")
+        raise SystemExit("usage: chip_smoke.py [--phases F | G | H | I]")
     marks = [("start", time.perf_counter())]
     phase_a_environment()
     phase_b_build()
@@ -1292,7 +1721,7 @@ def main():
     marks.append(("C", time.perf_counter()))
     # the main path's run, one path at a time: each counted() sets the counts
     # to 0 just before its path and reads them just after
-    totals = {"dense_backup": 0, "dense_evaluate": 0}
+    totals = dict.fromkeys(KERNELS, 0)
 
     def dense_path():
         values = phase_d_solve()
@@ -1308,23 +1737,32 @@ def main():
                  required=("dense_backup",))
     marks.append(("H", time.perf_counter()))
     errs["dense_backup"] = max(errs["dense_backup"], compare_patch_kernel(*h1))
+    i_errs, gen_times, gen_bounds = phase_i1_kernels()
+    counted("I", phase_i_models, totals=totals, required=KERNELS)
+    marks.append(("I", time.perf_counter()))
+    errs = {name: max(errs.get(name, 0.0), i_errs[name]) for name in KERNELS}
     launches = totals
-    log(f"[H] K1 launches from phase D through H: {launches}")
+    log(f"[I] K1 launches from phase D through I: {launches}")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:]))
         + f", total {time.perf_counter() - marks[0][1]:.1f}")
-    # times and bounds of the 11^6 quadcopter sweep with 25 candidates; no single
-    # PyTorch call computes either sweep, so there is no library time
-    t11, b11 = times[11], bounds[11]
+    # times and bounds of the structured entries at the 11^6 quadcopter with 25
+    # candidates, of the general ones at the 41^4 glider with 9; no single
+    # PyTorch call computes any of these sweeps, so there is no library time
+    at = {"dense_backup": (times[11], bounds[11]), "dense_evaluate": (times[11], bounds[11]),
+          "dense_backup_general": (gen_times, gen_bounds),
+          "dense_evaluate_general": (gen_times, gen_bounds)}
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": t11[key + "_kernel"], "plain_ms": t11[key + "_plain"],
-         "bound_ms": b11[name]["bound_ms"], "bound_by": b11[name]["bound_by"],
+         "ms": at[name][0][key + "_kernel"], "plain_ms": at[name][0][key + "_plain"],
+         "bound_ms": at[name][1][name]["bound_ms"], "bound_by": at[name][1][name]["bound_by"],
          "library_ms": None}
         for name, key, replaces in (
             ("dense_backup", "backup", "c3sc_tpu/ops/pallas_dense.py:107"),
-            ("dense_evaluate", "evaluate", "c3sc_tpu/solvers/dense.py:122"))
+            ("dense_evaluate", "evaluate", "c3sc_tpu/solvers/dense.py:122"),
+            ("dense_backup_general", "backup", "c3sc_tpu/ops/pallas_dense.py:107"),
+            ("dense_evaluate_general", "evaluate", "c3sc_tpu/solvers/dense.py:122"))
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

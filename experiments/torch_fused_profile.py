@@ -10,7 +10,8 @@ at each rank cap:
   [2] torch.profiler over 10 warm iterations: device-busy time, idle share,
       device time and launches of the two blocks of a core-step
       (``fiber_backup`` = block K2, ``core_fit`` = block K3), the largest
-      kernels, and the host syncs inside the window (none are allowed);
+      kernels, and the host syncs and scalar host reads inside the window
+      (none are allowed);
   [3] which ``torch.linalg`` calls of the core fit make the host wait for the
       device (each called alone after a long-running kernel);
   [4] the same loop as a CUDA graph of one masked iteration

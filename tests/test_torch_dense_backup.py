@@ -103,16 +103,18 @@ def test_cpu_wrapper_is_plain_version_and_launches_nothing():
 
 
 def test_kernel_refuses_what_it_cannot_run():
-    """No quiet fallback: a problem without the structure declarations or a
-    non-uniform grid raises before any launch."""
+    """No quiet fallback: a non-uniform grid raises before any launch. A
+    problem without the structure declarations is no longer refused: its
+    operands are the general entries' (per-candidate drift, variances and
+    cost), with their own launch arguments."""
     tp = tm.make_problem("pendulum")
     uc = tp.control_candidates(5)
     v = torch.zeros(21 * 21)
     bare = dataclasses.replace(tp, drift_f0=None, drift_G=None, sigma2_x=None,
                                cost_q=None, cost_r=None)
     ops = db.make_dense_operands(bare, tp.default_grid(21), uc, "cpu")
-    with pytest.raises(NotImplementedError, match="structure"):
-        db._kernel_inputs(ops, v)
+    ptrs, scalars = db._kernel_inputs(ops, v)
+    assert ops.general and ptrs[0] == ops.fc_k.data_ptr() and scalars[:2] == (2, len(uc))
     nodes = [np.linspace(-np.pi, np.pi, 21, endpoint=False), np.linspace(-8, 8, 21) ** 3 / 64]
     grid = Grid.create(tp.lb, tp.ub, (21, 21), (True, False), nodes=nodes)
     with pytest.raises(NotImplementedError, match="uniform"):

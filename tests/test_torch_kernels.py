@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: K1 (csrc/dense_backup.cu) against its
-plain PyTorch version, the refusals of its wrapper, and dense_vi running
-through it. Every test here needs a CUDA device and skips without one.
+plain PyTorch version (its structured entries and its general entries), the
+refusals of its wrapper, and dense_vi running through it. Every test here
+needs a CUDA device and skips without one.
 
 Imports neither JAX nor the JAX package, so it runs on a GPU machine
 without them: ``python -m pytest --noconftest tests/test_torch_kernels.py``.
@@ -130,13 +131,20 @@ def test_improve_and_evaluate_under_its_argmin_are_bit_equal(cuda, n):
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
+    """What no kernel takes raises; a problem without the declarations runs
+    the general entry, never the plain version."""
     tp = tm.make_problem("pendulum")
     uc = tp.control_candidates(5)
     v = torch.zeros((21, 21), device=cuda)
     bare = dataclasses.replace(tp, drift_f0=None, drift_G=None, sigma2_x=None,
                                cost_q=None, cost_r=None)
-    with pytest.raises(NotImplementedError):
-        db.dense_backup(db.make_dense_operands(bare, tp.default_grid(21), uc, cuda), v)
+    bare_ops = db.make_dense_operands(bare, tp.default_grid(21), uc, cuda)
+    before = (db.dense_backup.launches, db.dense_backup_general.launches)
+    db.dense_backup(bare_ops, v)
+    assert (db.dense_backup.launches, db.dense_backup_general.launches) == (before[0],
+                                                                           before[1] + 1)
+    with pytest.raises(ValueError):
+        db.dense_backup_general(db.make_dense_operands(tp, tp.default_grid(21), uc, cuda), v)
     nodes = [np.linspace(-np.pi, np.pi, 21, endpoint=False), np.linspace(-8, 8, 21) ** 3 / 64]
     grid = Grid.create(tp.lb, tp.ub, (21, 21), (True, False), nodes=nodes)
     with pytest.raises(NotImplementedError):
@@ -253,3 +261,90 @@ def test_receding_horizon_replans_as_one_graph(cuda):
     got, want = out[str(cuda)], out["cpu"]
     assert (got.xs.cpu() - want.xs).abs().max() <= 1e-3
     torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-3, atol=1e-5)
+
+
+def _bare(prob):
+    """The problem with every structure declaration stripped."""
+    return dataclasses.replace(prob, drift_f0=None, drift_G=None, sigma2_x=None, cost_q=None,
+                               cost_r=None)
+
+
+def _general_cases():
+    return {
+        "pendulum-bare": (lambda: _bare(tm.make_problem("pendulum")), 21, 9),
+        "glider": (lambda: tm.make_problem("glider"), (9, 7, 7, 7), 9),
+        "glider-bare": (lambda: _bare(tm.make_problem("glider")), (7, 5, 5, 5), 5),
+        "quadcopter7-bare": (lambda: _bare(tm.make_problem("quadcopter7", **QUAD)), 4, 3),
+    }
+
+
+@pytest.mark.parametrize("case", list(_general_cases()))
+def test_general_entries_match_plain_on_card(cuda, case):
+    """dense_backup_general and dense_evaluate_general against the plain
+    version (candidate_rhs through mca.transition_all_controls's
+    per-candidate branch) under both semantics: values within 2e-4 (the
+    structured entry's bar), argmins equal off near-ties (TIE); the 64-bit
+    offsets give the 32-bit ones' bits; evaluate under improve's own argmin
+    repeats its value bit for bit; each call launches its kernel once."""
+    make, n, n_cand = _general_cases()[case]
+    tp = make()
+    grid = tp.default_grid(n)
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
+    assert ops.general
+    v = _random_v(grid.shape, cuda)
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        before = db.dense_backup_general.launches
+        got, best = db.dense_backup(ops, v, clip, pin)
+        assert db.dense_backup_general.launches == before + 1
+        want, wbest = db.dense_backup_reference(ops, v, clip, pin)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        top2 = torch.topk(db.candidate_rhs(ops, v, clip, pin), 2, dim=0, largest=False).values
+        near_tie = (top2[1] - top2[0]) <= TIE * top2[0].abs().clamp(min=1.0)
+        assert not torch.any((best != wbest) & ~near_tie)
+        wide, wide_best = db.dense_backup_general(ops, v, clip, pin, _wide_index=True)
+        assert torch.equal(wide, got) and torch.equal(wide_best, best)
+    before = db.dense_evaluate_general.launches
+    torch.testing.assert_close(db.dense_evaluate(ops, v, wbest),
+                               db.dense_evaluate_reference(ops, v, wbest), rtol=2e-4, atol=2e-4)
+    assert db.dense_evaluate_general.launches == before + 1
+    assert torch.equal(db.dense_evaluate_general(ops, v, wbest, _wide_index=True),
+                       db.dense_evaluate_general(ops, v, wbest))
+    assert torch.equal(db.dense_evaluate_general(ops, v, best), got)
+
+
+@pytest.mark.parametrize("name,n,n_cand", [("dubins", (9, 9, 8), 7), ("quadcopter7", 4, 5)])
+def test_structured_new_instantiations_match_plain(cuda, name, n, n_cand):
+    """The structured entry at (d, du) = (3, 1) (Dubins, a periodic heading
+    and obstacles) and (7, 2) (the 7D quadcopter), both semantics, against
+    the plain version: values within 2e-4, argmins off near-ties."""
+    tp = tm.make_problem(name, **(QUAD if name == "quadcopter7" else {}))
+    grid = tp.default_grid(n)
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
+    assert not ops.general
+    v = _random_v(grid.shape, cuda)
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        got, best = db.dense_backup(ops, v, clip, pin)
+        want, wbest = db.dense_backup_reference(ops, v, clip, pin)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        top2 = torch.topk(db.candidate_rhs(ops, v, clip, pin), 2, dim=0, largest=False).values
+        near_tie = (top2[1] - top2[0]) <= TIE * top2[0].abs().clamp(min=1.0)
+        assert not torch.any((best != wbest) & ~near_tie)
+    torch.testing.assert_close(db.dense_evaluate(ops, v, wbest),
+                               db.dense_evaluate_reference(ops, v, wbest), rtol=2e-4, atol=2e-4)
+
+
+def test_glider_dense_vi_runs_through_the_general_entries(cuda):
+    """dense_vi of the glider (no drift declarations) on the card runs one
+    general improve and ten general evaluates an outer sweep, no structured
+    launch, and lands within 1e-4 x range of the same solve on the CPU."""
+    tp = tm.make_problem("glider")
+    grid = tp.default_grid((9, 7, 7, 7))
+    uc = tp.control_candidates(5)
+    counts = lambda: (db.dense_backup.launches, db.dense_evaluate.launches,  # noqa: E731
+                      db.dense_backup_general.launches, db.dense_evaluate_general.launches)
+    before = counts()
+    sol = dense_vi(tp, grid, controls=uc, tol=1e-5, max_outer=400, chunk=50, device=cuda)
+    made = [a - b for a, b in zip(counts(), before)]
+    assert made == [0, 0, sol.sweeps, 10 * sol.sweeps]
+    ref = dense_vi(tp, grid, controls=uc, tol=1e-5, max_outer=400, chunk=50, device="cpu").v.numpy()
+    assert np.abs(sol.v.cpu().numpy() - ref).max() <= 1e-4 * (ref.max() - ref.min())
