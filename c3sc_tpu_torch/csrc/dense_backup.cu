@@ -161,20 +161,28 @@ struct NodeTerms {
   float q;
 };
 
-// The diffusion part of the factored stencil from variances s2[j * stride]:
+// The diffusion part of the factored stencil from the node's variances s2[d]:
 // Q0 = sum_j 2 a_j + 1e-10 and A0 = sum_j a_j (v+_j + v-_j).
 template <int D, typename Idx>
-C3SC_FN void diffusion_terms(const float* s2, long long stride, const GridDesc<Idx>& g,
-                             const float (&vp)[D], const float (&vm)[D], float& Q0, float& A0) {
+C3SC_FN void diffusion_terms(const float (&s2)[D], const GridDesc<Idx>& g, const float (&vp)[D],
+                             const float (&vm)[D], float& Q0, float& A0) {
   float q0 = 0.0f, a0 = 0.0f;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    const float a = __fmul_rn(s2[j * stride], g.a_scale[j]);
+    const float a = __fmul_rn(s2[j], g.a_scale[j]);
     q0 = fmaf(2.0f, a, q0);
     a0 = fmaf(a, __fadd_rn(vp[j], vm[j]), a0);
   }
   Q0 = __fadd_rn(q0, 1e-10f);
   A0 = a0;
+}
+
+// x[j * stride + at] for j < D: one component plane after another of a
+// structure-of-arrays operand.
+template <int D, typename Idx>
+C3SC_FN void load_planes(const float* x, Idx at, Idx stride, float (&out)[D]) {
+#pragma unroll
+  for (int j = 0; j < D; ++j) out[j] = x[at + (Idx)j * stride];
 }
 
 // Fills the rest of t from the node's operands and from t.vp, t.vm.
@@ -188,7 +196,9 @@ C3SC_FN void load_node(Idx n, long long N, const Operands& op, const GridDesc<Id
 #pragma unroll
     for (int m = 0; m < DU; ++m) t.Gh[j][m] = __fmul_rn(op.G[(j * DU + m) * N + n], ih);
   }
-  diffusion_terms<D, Idx>(op.s2 + n, N, g, t.vp, t.vm, t.Q0, t.A0);
+  float s2[D];
+  load_planes<D, Idx>(op.s2, n, (Idx)N, s2);
+  diffusion_terms<D, Idx>(s2, g, t.vp, t.vm, t.Q0, t.A0);
   t.q = op.q[n];
 }
 
@@ -346,10 +356,24 @@ dense_evaluate_kernel(const float* __restrict__ v, const int32_t* __restrict__ b
 // a node (and d more of s2c, one of gc, where those are per candidate), so
 // at the glider's 41^4 with 9 candidates fc alone is 407 MB a sweep. Offsets
 // c d N + j N + n are 32-bit when C d N < 2^31, else 64-bit (the Idx switch).
-// Measured there on an H100 80GB HBM3 at 700 W (chip_smoke.py, phase I):
-// improve 0.180-0.188 ms against 0.153 ms of bytes; evaluate 0.128-0.134 ms
-// against 0.041 ms, because its reads of fc[best[n], j, n] scatter across the
-// candidate planes (a warp's 32 nodes touch up to C lines a component).
+//
+// The policy. dense_vi runs ten evaluate sweeps under each improve's argmin,
+// and an evaluate that read fc[best[n], j, n] scattered its loads across the
+// candidate planes: a warp's 32 nodes touched up to C lines a component, so
+// each useful 4-byte read cost a 32-byte sector, and it ran at a third of its
+// byte bound (0.128 ms against 0.041 ms at 41^4, H100 80GB HBM3, 700 W). The
+// JAX package gathers the policy's stencil once per improve (gather_policy in
+// c3sc_tpu/solvers/dense.py); here the improve's epilogue writes the winning
+// candidate's operands beside vnew and best, as structure-of-arrays
+// fpol [d, N], s2pol [d, N], gpol [N], and every operand of the evaluate is
+// then one line a warp. The epilogue reads the winner's fc (s2c, gc) again:
+// its warp read those very lines in the candidate loop, so they come from
+// L1 or L2, not from device memory, and the improve moves 4d (+ 4d, + 4)
+// more bytes a node, all of them coalesced writes. Keeping the running
+// winner's operands in registers instead (up to 17 floats) was tried on the
+// H100: at the glider's d = 4 it raises the improve's registers a thread,
+// and the memory-bound loop, with fewer warps in flight, ran slower; only
+// at the stripped pendulum's d = 2 did it run faster.
 struct GeneralOperands {
   const float* fc;        // [C, d, N]
   const float* s2;        // [d, N] or null
@@ -363,55 +387,67 @@ struct GeneralOperands {
   float beta;
 };
 
-// Bellman right-hand side of candidate c at node n. Q0, A0 and q are the
-// node's own terms where s2 and q are declared (unused otherwise).
+// The operands of one candidate per node (the policy): written by the improve
+// sweep's epilogue, read by the evaluate sweep. s2 exists where the
+// operands' s2c does, g where their gc does; all null in an improve that
+// keeps no policy.
+struct PolicyOperands {
+  float* f;   // [d, N]
+  float* s2;  // [d, N] or null
+  float* g;   // [N] or null
+};
+
+// Bellman right-hand side of one candidate at one node from its drift f and
+// its cost gcost; Q0 and A0 are the diffusion terms of its variances.
 template <int D, typename Idx>
-C3SC_FN float general_rhs(const GeneralOperands& op, const GridDesc<Idx>& g, Idx n, Idx N,
-                          int c, const float (&vp)[D], const float (&vm)[D], float Q0,
-                          float A0, float q) {
-  const Idx at = (Idx)c * (Idx)D * N + n;  // (c, 0, n) of the [C, d, N] operands
-  if (op.s2c != nullptr) diffusion_terms<D, Idx>(op.s2c + at, (long long)N, g, vp, vm, Q0, A0);
+C3SC_FN float general_rhs(const float (&f)[D], const GridDesc<Idx>& g, const float (&vp)[D],
+                          const float (&vm)[D], float Q0, float A0, float gcost, float beta) {
   float Q = Q0;
   float S = 0.0f;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    const float fh = __fmul_rn(op.fc[at + (Idx)j * N], g.ih[j]);
+    const float fh = __fmul_rn(f[j], g.ih[j]);
     const float af = fabsf(fh);
     Q = __fadd_rn(Q, af);
     S = fmaf(af, fh > 0.0f ? vp[j] : vm[j], S);
   }
-  const float gcost = op.gc != nullptr ? op.gc[(Idx)c * N + n] : __fadd_rn(op.r[c], q);
   const float dt = __frcp_rn(Q);
-  const float e = expf(__fmul_rn(-op.beta, dt));
+  const float e = expf(__fmul_rn(-beta, dt));
   return __fmul_rn(dt, fmaf(e, __fadd_rn(A0, S), gcost));
 }
 
-// The node's candidate-independent terms of the general form.
-template <int D, typename Idx>
-C3SC_FN void general_node(const GeneralOperands& op, const GridDesc<Idx>& g, Idx n, long long N,
-                          const float (&vp)[D], const float (&vm)[D], float& Q0, float& A0,
-                          float& q) {
-  Q0 = A0 = q = 0.0f;
-  if (op.s2 != nullptr) diffusion_terms<D, Idx>(op.s2 + n, N, g, vp, vm, Q0, A0);
-  if (op.q != nullptr) q = op.q[n];
-}
-
 // The improve sweep of the general form: one thread a node, strict `<`
-// running min over the candidates (first index on ties).
+// running min over the candidates (first index on ties); the winner's
+// operands go to `pol` where its pointers are not null (a bad or NaN rhs
+// everywhere leaves candidate 0, whose operands are then written).
 template <int D, typename Idx>
 __global__ void __launch_bounds__(kBlock)
-dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, GridDesc<Idx> g,
-                            long long N, int clip, float lo, float hi, int pin,
+dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, PolicyOperands pol,
+                            GridDesc<Idx> g, long long N, int clip, float lo, float hi, int pin,
                             float* __restrict__ vnew, int32_t* __restrict__ best) {
   const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
   if (n >= (Idx)N) return;
-  float vp[D], vm[D], Q0, A0, q;
+  float vp[D], vm[D], s[D];
   neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, vp, vm);
-  general_node<D, Idx>(op, g, n, N, vp, vm, Q0, A0, q);
+  float Q0n = 0.0f, A0n = 0.0f, q = 0.0f;
+  if (op.s2 != nullptr) {
+    load_planes<D, Idx>(op.s2, n, (Idx)N, s);
+    diffusion_terms<D, Idx>(s, g, vp, vm, Q0n, A0n);
+  }
+  if (op.q != nullptr) q = op.q[n];
   float best_v = 3.4e38f;
   int best_c = 0;
   for (int c = 0; c < op.C; ++c) {
-    const float rhs = general_rhs<D, Idx>(op, g, n, (Idx)N, c, vp, vm, Q0, A0, q);
+    const Idx at = (Idx)c * (Idx)D * (Idx)N + n;
+    float f[D];
+    load_planes<D, Idx>(op.fc, at, (Idx)N, f);
+    float Q0 = Q0n, A0 = A0n;
+    if (op.s2c != nullptr) {
+      load_planes<D, Idx>(op.s2c, at, (Idx)N, s);
+      diffusion_terms<D, Idx>(s, g, vp, vm, Q0, A0);
+    }
+    const float gcost = op.gc != nullptr ? op.gc[(Idx)c * (Idx)N + n] : __fadd_rn(op.r[c], q);
+    const float rhs = general_rhs<D, Idx>(f, g, vp, vm, Q0, A0, gcost, op.beta);
     if (rhs < best_v) {
       best_v = rhs;
       best_c = c;
@@ -420,14 +456,28 @@ dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, Gri
   if (clip) best_v = fminf(fmaxf(best_v, lo), hi);
   vnew[n] = op.t_mask[n] ? op.t_val[n] : best_v;
   best[n] = best_c;
+  if (pol.f != nullptr) {  // the warp read the winner's lines in the loop: L1 or L2 hits
+    const Idx at = (Idx)best_c * (Idx)D * (Idx)N + n;
+#pragma unroll
+    for (int j = 0; j < D; ++j) pol.f[(Idx)j * (Idx)N + n] = op.fc[at + (Idx)j * (Idx)N];
+    if (pol.s2 != nullptr) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) pol.s2[(Idx)j * (Idx)N + n] = op.s2c[at + (Idx)j * (Idx)N];
+    }
+    if (pol.g != nullptr) pol.g[n] = op.gc[(Idx)best_c * (Idx)N + n];
+  }
 }
 
-// The fixed-policy sweep of the general form: fc[best[n], :, n] alone.
+// The fixed-policy sweep of the general form, from the policy's operands:
+// every load is one line a warp (fpol, s2 or s2pol, q or gpol, t_mask,
+// t_val, best, and v's neighbours); r[best[n]] comes from a table of C
+// floats that stays in the L1 cache. The arithmetic is the improve's, so
+// under the improve's own policy it repeats the improve's value bit for bit.
 template <int D, typename Idx>
 __global__ void __launch_bounds__(kBlock)
 dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __restrict__ best,
-                              GeneralOperands op, GridDesc<Idx> g, long long N,
-                              float* __restrict__ vnew) {
+                              GeneralOperands op, PolicyOperands pol, GridDesc<Idx> g,
+                              long long N, float* __restrict__ vnew) {
   const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
   if (n >= (Idx)N) return;
   if (op.t_mask[n]) {
@@ -435,14 +485,17 @@ dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __rest
     return;
   }
   const int c = best[n];
-  if (c < 0 || c >= op.C) {  // make a bad policy index visible, never read past fc
+  if (c < 0 || c >= op.C) {  // make a bad policy index visible, never read past r
     vnew[n] = nanf("");
     return;
   }
-  float vp[D], vm[D], Q0, A0, q;
+  float vp[D], vm[D], s[D], f[D], Q0, A0;
   neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, vp, vm);
-  general_node<D, Idx>(op, g, n, N, vp, vm, Q0, A0, q);
-  vnew[n] = general_rhs<D, Idx>(op, g, n, (Idx)N, c, vp, vm, Q0, A0, q);
+  load_planes<D, Idx>(pol.s2 != nullptr ? pol.s2 : op.s2, n, (Idx)N, s);
+  diffusion_terms<D, Idx>(s, g, vp, vm, Q0, A0);
+  load_planes<D, Idx>(pol.f, n, (Idx)N, f);
+  const float gcost = pol.g != nullptr ? pol.g[n] : __fadd_rn(__ldg(op.r + c), op.q[n]);
+  vnew[n] = general_rhs<D, Idx>(f, g, vp, vm, Q0, A0, gcost, op.beta);
 }
 
 // ---- host side ---------------------------------------------------------------------
@@ -489,10 +542,23 @@ struct Call {
   int pin;
   int wide;  // force 64-bit indices (a test's switch; large grids take them anyway)
   cudaStream_t stream;
+  int preload;  // load both sweeps' kernels of this instantiation, launch nothing
 };
+
+// Loads the kernels a later launch (or a CUDA graph's capture of one) will
+// run: with lazy module loading a kernel is otherwise loaded at its first
+// launch, which a stream capture cannot do.
+template <typename K1, typename K2>
+cudaError_t preload_kernels(K1 improve, K2 evaluate) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, improve);
+  return err != cudaSuccess ? err : cudaFuncGetAttributes(&attr, evaluate);
+}
 
 template <int D, int DU, typename Idx>
 cudaError_t launch(const Call& c, long long N) {
+  if (c.preload)
+    return preload_kernels(dense_backup_kernel<D, DU, Idx>, dense_evaluate_kernel<D, DU, Idx>);
   GridDesc<Idx> g;
   make_desc<Idx>(c.d, c.shape, c.h, c.periodic, &g);
   const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
@@ -554,6 +620,7 @@ struct GeneralCall {
   const float* v;
   const int32_t* best_in;  // the policy of an evaluate sweep; null for improve
   GeneralOperands op;
+  PolicyOperands pol;      // written by improve (where not null), read by evaluate
   float* vnew;
   int32_t* best_out;
   int d;
@@ -565,19 +632,23 @@ struct GeneralCall {
   int pin;
   int wide;
   cudaStream_t stream;
+  int preload;
 };
 
 template <int D, typename Idx>
 cudaError_t launch_general(const GeneralCall& c, long long N) {
+  if (c.preload)
+    return preload_kernels(dense_backup_general_kernel<D, Idx>,
+                           dense_evaluate_general_kernel<D, Idx>);
   GridDesc<Idx> g;
   make_desc<Idx>(c.d, c.shape, c.h, c.periodic, &g);
   const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
   if (c.best_in == nullptr) {
     dense_backup_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(
-        c.v, c.op, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
+        c.v, c.op, c.pol, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
   } else {
-    dense_evaluate_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(c.v, c.best_in, c.op,
-                                                                           g, N, c.vnew);
+    dense_evaluate_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(
+        c.v, c.best_in, c.op, c.pol, g, N, c.vnew);
   }
   return cudaGetLastError();
 }
@@ -592,9 +663,19 @@ cudaError_t run_general(const GeneralCall& c, long long N) {
 cudaError_t dispatch_general(const GeneralCall& c) {
   const long long N = grid_nodes(c.d, c.shape, c.h);
   const GeneralOperands& op = c.op;
-  if (N < 0 || op.C < 1 || op.fc == nullptr || (op.s2 == nullptr) == (op.s2c == nullptr) ||
-      ((op.q != nullptr && op.r != nullptr) == (op.gc != nullptr)))
-    return cudaErrorInvalidValue;
+  const PolicyOperands& pol = c.pol;
+  if (N < 0 || op.C < 1) return cudaErrorInvalidValue;
+  if (!c.preload) {
+    if (op.fc == nullptr || (op.s2 == nullptr) == (op.s2c == nullptr) ||
+        ((op.q != nullptr && op.r != nullptr) == (op.gc != nullptr)))
+      return cudaErrorInvalidValue;
+    // an evaluate reads, and a policy-keeping improve writes, every policy
+    // operand that is per candidate
+    const bool keeps = c.best_in != nullptr || pol.f != nullptr;
+    if (keeps && (pol.f == nullptr || (pol.s2 == nullptr) != (op.s2c == nullptr) ||
+                  (pol.g == nullptr) != (op.gc == nullptr)))
+      return cudaErrorInvalidValue;
+  }
   switch (c.d) {
     case 1: return run_general<1>(c, N);
     case 2: return run_general<2>(c, N);
@@ -621,7 +702,7 @@ int c3sc_dense_backup(const float* v, const float* f0, const float* G, const flo
                       const int* periodic, float beta, int clip, float lo, float hi,
                       int pin_input, int wide, void* stream) {
   const Call c{v,  nullptr, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, best, d, du, shape,
-               h,  periodic, clip, lo, hi, pin_input, wide, (cudaStream_t)stream};
+               h,  periodic, clip, lo, hi, pin_input, wide, (cudaStream_t)stream, 0};
   return (int)dispatch(c);
 }
 
@@ -633,34 +714,69 @@ int c3sc_dense_evaluate(const float* v, const int32_t* best, const float* f0, co
                         float beta, int wide, void* stream) {
   if (best == nullptr) return (int)cudaErrorInvalidValue;
   const Call c{v,  best, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, nullptr, d, du, shape,
-               h,  periodic, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream};
+               h,  periodic, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream, 0};
   return (int)dispatch(c);
 }
 
 // One improve sweep of the general form: fc [C,d,N]; s2 [d,N] or s2c [C,d,N];
-// q [N] with r [C], or gc [C,N]; the absent ones null.
+// q [N] with r [C], or gc [C,N]; the absent ones null. Where fpol is not null
+// the winner's operands go to fpol [d,N], s2pol [d,N] (where s2c is given)
+// and gpol [N] (where gc is).
 int c3sc_dense_backup_general(const float* v, const float* fc, const float* s2,
                               const float* s2c, const float* q, const float* r,
                               const float* gc, const uint8_t* t_mask, const float* t_val,
-                              float* vnew, int32_t* best, int d, int C, const long long* shape,
-                              const float* h, const int* periodic, float beta, int clip,
-                              float lo, float hi, int pin_input, int wide, void* stream) {
-  const GeneralCall c{v, nullptr, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta}, vnew, best, d,
-                      shape, h, periodic, clip, lo, hi, pin_input, wide, (cudaStream_t)stream};
+                              float* vnew, int32_t* best, float* fpol, float* s2pol, float* gpol,
+                              int d, int C, const long long* shape, const float* h,
+                              const int* periodic, float beta, int clip, float lo, float hi,
+                              int pin_input, int wide, void* stream) {
+  const GeneralCall c{v, nullptr, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta},
+                      {fpol, s2pol, gpol}, vnew, best, d, shape, h, periodic, clip, lo, hi,
+                      pin_input, wide, (cudaStream_t)stream, 0};
   return (int)dispatch_general(c);
 }
 
-// One fixed-policy sweep of the general form under the candidate indices `best`.
-int c3sc_dense_evaluate_general(const float* v, const int32_t* best, const float* fc,
+// One fixed-policy sweep of the general form under the policy (best, fpol,
+// s2pol, gpol) that an improve sweep's epilogue wrote, or a gather of it.
+int c3sc_dense_evaluate_general(const float* v, const int32_t* best, const float* fpol,
+                                const float* s2pol, const float* gpol, const float* fc,
                                 const float* s2, const float* s2c, const float* q,
                                 const float* r, const float* gc, const uint8_t* t_mask,
                                 const float* t_val, float* vnew, int d, int C,
                                 const long long* shape, const float* h, const int* periodic,
                                 float beta, int wide, void* stream) {
   if (best == nullptr) return (int)cudaErrorInvalidValue;
-  const GeneralCall c{v, best, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta}, vnew, nullptr, d,
-                      shape, h, periodic, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream};
+  const GeneralCall c{v, best, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta},
+                      {const_cast<float*>(fpol), const_cast<float*>(s2pol),
+                       const_cast<float*>(gpol)},
+                      vnew, nullptr, d, shape, h, periodic, 0, 0.0f, 0.0f, 0, wide,
+                      (cudaStream_t)stream, 0};
   return (int)dispatch_general(c);
+}
+
+// Load the improve and evaluate kernels that a launch on this grid would run
+// (the structured ones for du >= 1, the general ones for du = 0), launching
+// nothing: a CUDA graph's capture can then record their launches.
+int c3sc_dense_preload(int d, int du, int C, const long long* shape, const float* h,
+                       const int* periodic) {
+  if (du == 0) {
+    GeneralCall c{};
+    c.op.C = C;
+    c.d = d;
+    c.shape = shape;
+    c.h = h;
+    c.periodic = periodic;
+    c.preload = 1;
+    return (int)dispatch_general(c);
+  }
+  Call c{};
+  c.op.C = C;
+  c.d = d;
+  c.du = du;
+  c.shape = shape;
+  c.h = h;
+  c.periodic = periodic;
+  c.preload = 1;
+  return (int)dispatch(c);
 }
 
 }  // extern "C"

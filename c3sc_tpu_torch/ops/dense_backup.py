@@ -29,6 +29,18 @@ problem and grid, in candidate chunks, into the per-candidate drift
 ``dense_evaluate`` route such operands there. Non-uniform grids raise
 ``NotImplementedError`` on CUDA.
 
+The policy. ``dense_vi`` runs ``eval_sweeps`` fixed-policy sweeps after
+every improve. ``dense_backup(..., with_policy=True)`` returns the improve's
+argmin as a ``DensePolicy``: for general operands the kernel's epilogue
+also writes the winning candidate's operands, ``fpol_k [d, N]`` (and
+``s2pol_k [d, N]``, ``gpol [N]`` where those are per candidate), so that the
+evaluate sweeps read coalesced lines instead of ``fc_k[best[n], :, n]``
+scattered across the candidate planes. It is the counterpart of
+``gather_policy`` in ``c3sc_tpu/solvers/dense.py``; ``gather_policy`` here
+builds the same object from ``best`` alone with a plain ``torch.gather``, for
+callers that hold only the indices (it is the plain version of the
+epilogue), and the evaluate wrappers take either.
+
 Semantics switches of ``dense_backup``: ``clip=(lo, hi)`` clips the input
 values and the result, ``pin_input=True`` pins terminal nodes of the input
 before they are read as neighbours. The Pallas kernel is
@@ -42,7 +54,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -189,6 +201,42 @@ def _general_operands(problem: ControlProblem, x, uc, chunk_elems: int = 1 << 22
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class DensePolicy:
+    """A fixed policy of the evaluate sweeps: the candidate index of every
+    node and, for general operands, that candidate's per-candidate operands
+    in the kernels' structure-of-arrays layout (contiguous): ``fpol_k [d,
+    N]`` its drift, ``s2pol_k [d, N]`` its variances where the operands have
+    ``s2c_k``, ``gpol [N]`` its stage cost where they have ``gc``. Structured
+    operands need ``best`` alone: their evaluate reads ``f0_k``, ``G_k`` and
+    ``uc[best]``."""
+
+    best: torch.Tensor                       # [N] int32
+    fpol_k: Optional[torch.Tensor] = None    # [d, N]
+    s2pol_k: Optional[torch.Tensor] = None   # [d, N]
+    gpol: Optional[torch.Tensor] = None      # [N]
+
+
+def gather_policy(ops: DenseOperands, best) -> DensePolicy:
+    """The policy of candidate indices ``best [N]`` (int32), gathered from the
+    operands with plain ``torch.gather`` on their device: the plain version
+    of the improve kernel's epilogue (``dense_backup(..., with_policy=True)``),
+    bit for bit, for callers that hold only the indices."""
+    best = best.reshape(-1)
+    if not ops.general:
+        return DensePolicy(best)
+    # a bad index gathers candidate 0 or C - 1 here; the evaluate kernel's
+    # guard then turns its node into NaN, from best
+    idx = best.long().clamp(0, ops.uc.shape[0] - 1)[None]   # [1, N]
+
+    def take(a):                                             # [C, d, N] -> [d, N]
+        return torch.gather(a, 0, idx[:, None].expand(1, a.shape[1], -1))[0]
+
+    return DensePolicy(best, take(ops.fc_k),
+                       None if ops.s2c_k is None else take(ops.s2c_k),
+                       None if ops.gc is None else torch.gather(ops.gc, 0, idx)[0])
+
+
 # ---- plain PyTorch version ------------------------------------------------------
 
 
@@ -264,20 +312,27 @@ def candidate_rhs_factored(ops: DenseOperands, v, clip=None, pin_input: bool = F
     return dt * (g + torch.exp(-ops.problem.beta * dt) * (A0 + S))
 
 
-def dense_backup_reference(ops: DenseOperands, v, clip=None, pin_input: bool = False):
-    """Plain PyTorch sweep: (vnew [*shape], best [N] int32)."""
+def dense_backup_reference(ops: DenseOperands, v, clip=None, pin_input: bool = False,
+                           with_policy: bool = False):
+    """Plain PyTorch sweep: (vnew [*shape], best [N] int32), or with
+    ``with_policy`` (vnew, ``gather_policy(ops, best)``)."""
     rhs = candidate_rhs(ops, v, clip, pin_input)
     best = torch.argmin(rhs, dim=0)  # first index on ties
     vnew = torch.gather(rhs, 0, best[None])[0]
     if clip is not None:
         vnew = torch.clamp(vnew, clip[0], clip[1])
-    vnew = torch.where(ops.t_mask, ops.t_val, vnew)
-    return vnew.reshape(ops.grid.shape), best.to(torch.int32)
+    vnew = torch.where(ops.t_mask, ops.t_val, vnew).reshape(ops.grid.shape)
+    best = best.to(torch.int32)
+    return vnew, (gather_policy(ops, best) if with_policy else best)
 
 
-def dense_evaluate_reference(ops: DenseOperands, v, best):
-    """Plain PyTorch fixed-policy sweep under candidate indices best [N]."""
+def dense_evaluate_reference(ops: DenseOperands, v, policy):
+    """Plain PyTorch fixed-policy sweep under a ``DensePolicy`` or candidate
+    indices best [N]. It recomputes the stencil of ``uc[best]`` through the
+    problem's own callables, so it reads none of the policy's gathered
+    operands: a policy whose operands disagree with its indices shows."""
     problem, grid = ops.problem, ops.grid
+    best = policy.best if isinstance(policy, DensePolicy) else policy
     u = ops.uc[best.long()]                                    # [N, du]
     pp, pm, dt = mca.transition(problem, grid, ops.x, u)
     g = problem.stage_cost(ops.x, u)
@@ -301,12 +356,31 @@ def _lib() -> ctypes.CDLL:
     lib.c3sc_dense_backup.restype = i32
     lib.c3sc_dense_evaluate.argtypes = [ptr] * 11 + [i32] * 3 + desc + [f32, i32, ptr]
     lib.c3sc_dense_evaluate.restype = i32
-    lib.c3sc_dense_backup_general.argtypes = ([ptr] * 11 + [i32] * 2 + desc
+    lib.c3sc_dense_backup_general.argtypes = ([ptr] * 14 + [i32] * 2 + desc
                                               + [f32, i32, f32, f32, i32, i32, ptr])
     lib.c3sc_dense_backup_general.restype = i32
-    lib.c3sc_dense_evaluate_general.argtypes = [ptr] * 11 + [i32] * 2 + desc + [f32, i32, ptr]
+    lib.c3sc_dense_evaluate_general.argtypes = [ptr] * 14 + [i32] * 2 + desc + [f32, i32, ptr]
     lib.c3sc_dense_evaluate_general.restype = i32
+    lib.c3sc_dense_preload.argtypes = [i32] * 3 + desc
+    lib.c3sc_dense_preload.restype = i32
     return lib
+
+
+ENTRIES = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general")
+
+
+def launch_counts() -> dict:
+    """K1's launch counts by entry (``ENTRIES``)."""
+    return {name: globals()[name].launches for name in ENTRIES}
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to K1's launch counts: what a CUDA graph's
+    replay launches, which passes no wrapper (``times=-1`` takes back the
+    increments the wrappers made while the graph was captured, which ran
+    nothing)."""
+    for name, n in counts.items():
+        globals()[name].launches += times * n
 
 
 def _kernel_inputs(ops: DenseOperands, v):
@@ -339,9 +413,25 @@ def _launch(entry: str, v, *args):
         raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
 
 
+def preload(ops: DenseOperands) -> None:
+    """Load the improve and evaluate kernels that launches on these CUDA
+    operands run, launching nothing. With lazy module loading a kernel is
+    otherwise loaded at its first launch, which a CUDA graph's capture must
+    not have to do: the graphed solvers call this before they capture."""
+    _, scalars = ops.kernel_args
+    d, C, shape, h, periodic = (scalars[0], scalars[1], *scalars[2:5]) if ops.general \
+        else (scalars[0], scalars[2], *scalars[3:6])
+    du = 0 if ops.general else scalars[1]
+    with torch.cuda.device(ops.x.device):
+        err = _lib().c3sc_dense_preload(d, du, C, shape, h, periodic)
+    if err != 0:
+        raise RuntimeError(f"loading the dense sweep kernels failed with CUDA error {err}")
+
+
 def dense_backup(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
-                 _wide_index: bool = False):
-    """One improve sweep: (vnew [*grid.shape] f32, best [N] int32 argmin).
+                 with_policy: bool = False, _wide_index: bool = False):
+    """One improve sweep: (vnew [*grid.shape] f32, best [N] int32 argmin), or
+    with ``with_policy`` (vnew, ``DensePolicy``), the evaluate sweeps' input.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``dense_backup.launches`` counts those launches), or, for general
@@ -350,9 +440,10 @@ def dense_backup(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
     switch that makes it do so on a small grid.
     """
     if v.device.type == "cpu":
-        return dense_backup_reference(ops, v, clip, pin_input)
+        return dense_backup_reference(ops, v, clip, pin_input, with_policy)
     if ops.general:
-        return dense_backup_general(ops, v, clip, pin_input, _wide_index=_wide_index)
+        return dense_backup_general(ops, v, clip, pin_input, with_policy=with_policy,
+                                    _wide_index=_wide_index)
     _require_cuda(v, "dense_backup")
     ptrs, scalars = _kernel_inputs(ops, v)
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
@@ -361,26 +452,30 @@ def dense_backup(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
     _launch("c3sc_dense_backup", v, v.data_ptr(), *ptrs, vnew.data_ptr(), best.data_ptr(),
             *scalars, int(clip is not None), lo, hi, int(pin_input), int(_wide_index))
     dense_backup.launches += 1
-    return vnew.view(ops.grid.shape), best
+    return vnew.view(ops.grid.shape), (DensePolicy(best) if with_policy else best)
 
 
 dense_backup.launches = 0
 
 
-def dense_evaluate(ops: DenseOperands, v, best, *, _wide_index: bool = False):
-    """One fixed-policy sweep under candidate indices best [N] (int32):
-    vnew [*grid.shape], pinned on terminal nodes.
+def dense_evaluate(ops: DenseOperands, v, policy: Union[DensePolicy, torch.Tensor], *,
+                   _wide_index: bool = False):
+    """One fixed-policy sweep under ``policy``, a ``DensePolicy`` (from
+    ``dense_backup(..., with_policy=True)`` or ``gather_policy``) or the
+    candidate indices best [N] (int32) alone: vnew [*grid.shape], pinned on
+    terminal nodes.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``dense_evaluate.launches`` counts those launches), or, for general
     operands, ``dense_evaluate_general``.
     """
     if v.device.type == "cpu":
-        return dense_evaluate_reference(ops, v, best)
+        return dense_evaluate_reference(ops, v, policy)
     if ops.general:
-        return dense_evaluate_general(ops, v, best, _wide_index=_wide_index)
+        return dense_evaluate_general(ops, v, policy, _wide_index=_wide_index)
     _require_cuda(v, "dense_evaluate")
     ptrs, scalars = _kernel_inputs(ops, v)
+    best = policy.best if isinstance(policy, DensePolicy) else policy
     _check_policy(v, best)
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
     _launch("c3sc_dense_evaluate", v, v.data_ptr(), best.data_ptr(), *ptrs, vnew.data_ptr(),
@@ -398,56 +493,94 @@ def _check_policy(v, best):
         raise ValueError("best must be a contiguous int32 tensor of one index per node")
 
 
+def _check_general_policy(ops: DenseOperands, v, pol: DensePolicy):
+    """The policy's operands are those of these operands: contiguous float32
+    on v's device, fpol_k [d, N], s2pol_k [d, N] exactly where s2c_k exists,
+    gpol [N] exactly where gc does."""
+    _check_policy(v, pol.best)
+    N, d = ops.x.shape
+    want = ((pol.fpol_k, (d, N)), (pol.s2pol_k, (d, N) if ops.s2c_k is not None else None),
+            (pol.gpol, (N,) if ops.gc is not None else None))
+    for t, shape in want:
+        if (t is None) != (shape is None) or t is not None and (
+                tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != v.device
+                or not t.is_contiguous()):
+            raise ValueError("the policy's operands do not match the general operands: "
+                             "take them from dense_backup(..., with_policy=True) or "
+                             "gather_policy")
+
+
 def _require_general(ops: DenseOperands, name):
     if not ops.general:
         raise ValueError(f"{name}: operands of a structured problem take the structured entry")
 
 
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
-                         _wide_index: bool = False):
+                         with_policy: bool = False, _wide_index: bool = False):
     """One improve sweep on general operands (a problem without all five
     declarations): (vnew [*grid.shape] f32, best [N] int32), with
-    ``dense_backup``'s ``clip`` and ``pin_input`` switches.
+    ``dense_backup``'s ``clip`` and ``pin_input`` switches; with
+    ``with_policy`` (vnew, ``DensePolicy``), whose operands the kernel's
+    epilogue writes after re-reading the winner's lines of ``fc`` (``s2c``,
+    ``gc``), which its warp read in the candidate loop and which come from
+    L1 or L2.
 
     CPU tensors take the plain version (``dense_backup_reference``, through
-    ``mca.transition_all_controls``'s per-candidate branch); CUDA tensors
-    launch the kernel (``dense_backup_general.launches`` counts those
-    launches). 64-bit offsets are taken when C d N >= 2^31; ``_wide_index``
-    forces them.
+    ``mca.transition_all_controls``'s per-candidate branch, and
+    ``gather_policy``); CUDA tensors launch the kernel
+    (``dense_backup_general.launches`` counts those launches). 64-bit
+    offsets are taken when C d N >= 2^31; ``_wide_index`` forces them.
     """
     if v.device.type == "cpu":
-        return dense_backup_reference(ops, v, clip, pin_input)
+        return dense_backup_reference(ops, v, clip, pin_input, with_policy)
     _require_cuda(v, "dense_backup_general")
     _require_general(ops, "dense_backup_general")
     ptrs, scalars = _kernel_inputs(ops, v)
-    vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
-    best = torch.empty(v.numel(), dtype=torch.int32, device=v.device)
+    N, d = ops.x.shape
+    vnew = torch.empty(N, dtype=torch.float32, device=v.device)
+    best = torch.empty(N, dtype=torch.int32, device=v.device)
+    pol = DensePolicy(best)
+    if with_policy:
+        empty = functools.partial(torch.empty, dtype=torch.float32, device=v.device)
+        pol = DensePolicy(best, empty((d, N)), None if ops.s2c_k is None else empty((d, N)),
+                          None if ops.gc is None else empty(N))
     lo, hi = (float(clip[0]), float(clip[1])) if clip is not None else (0.0, 0.0)
     _launch("c3sc_dense_backup_general", v, v.data_ptr(), *ptrs, vnew.data_ptr(),
-            best.data_ptr(), *scalars, int(clip is not None), lo, hi, int(pin_input),
-            int(_wide_index))
+            best.data_ptr(), _ptr(pol.fpol_k), _ptr(pol.s2pol_k), _ptr(pol.gpol), *scalars,
+            int(clip is not None), lo, hi, int(pin_input), int(_wide_index))
     dense_backup_general.launches += 1
-    return vnew.view(ops.grid.shape), best
+    return vnew.view(ops.grid.shape), (pol if with_policy else best)
 
 
 dense_backup_general.launches = 0
 
 
-def dense_evaluate_general(ops: DenseOperands, v, best, *, _wide_index: bool = False):
-    """One fixed-policy sweep on general operands under candidate indices
-    best [N] (int32): vnew [*grid.shape], pinned on terminal nodes.
+def dense_evaluate_general(ops: DenseOperands, v, policy: Union[DensePolicy, torch.Tensor], *,
+                           _wide_index: bool = False):
+    """One fixed-policy sweep on general operands under ``policy`` (a
+    ``DensePolicy``, or candidate indices best [N] int32, which are gathered
+    first with ``gather_policy``): vnew [*grid.shape], pinned on terminal
+    nodes. The kernel reads the policy's operands, never ``fc_k``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``dense_evaluate_general.launches`` counts those launches).
     """
     if v.device.type == "cpu":
-        return dense_evaluate_reference(ops, v, best)
+        return dense_evaluate_reference(ops, v, policy)
     _require_cuda(v, "dense_evaluate_general")
     _require_general(ops, "dense_evaluate_general")
     ptrs, scalars = _kernel_inputs(ops, v)
-    _check_policy(v, best)
+    if not isinstance(policy, DensePolicy):
+        _check_policy(v, policy)
+        policy = gather_policy(ops, policy)
+    _check_general_policy(ops, v, policy)
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
-    _launch("c3sc_dense_evaluate_general", v, v.data_ptr(), best.data_ptr(), *ptrs,
+    _launch("c3sc_dense_evaluate_general", v, v.data_ptr(), policy.best.data_ptr(),
+            _ptr(policy.fpol_k), _ptr(policy.s2pol_k), _ptr(policy.gpol), *ptrs,
             vnew.data_ptr(), *scalars, int(_wide_index))
     dense_evaluate_general.launches += 1
     return vnew.view(ops.grid.shape)

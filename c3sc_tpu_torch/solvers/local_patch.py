@@ -14,7 +14,8 @@ with the patch's own terminal mask: the sub-box faces pinned to the TT data,
 and interior obstacle or goal nodes pinned as the parent operator pins them.
 K1 takes uniform grids only, so a patch whose sub-box is not uniform (a
 slice of a periodic dimension's nodes, say) runs on the CPU only; on CUDA it
-raises ``NotImplementedError``.
+raises ``NotImplementedError``. On a CUDA device a sweep is one CUDA
+graph, captured once and replayed (``solvers.dense.GraphedSweeps``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops.dense_backup import dense_backup, make_dense_operands
 from c3sc_tpu_torch.ops.interp import multilinear_interp
 from c3sc_tpu_torch.ops.tt import tt_gather_eval, tt_lerp_eval
+from c3sc_tpu_torch.solvers.dense import sweep_runner
 
 
 @dataclasses.dataclass
@@ -104,6 +106,7 @@ def solve_local_patch(
     max_sweeps: int = 2000,
     chunk: int = 50,
     device=None,
+    cuda_graph: bool | None = None,
 ) -> LocalPatch:
     """Dense VI on the sub-box [lo, hi] (node indices, inclusive) of the
     parent grid, faces pinned to ``value_fn`` (the TT solve; points [B, d]
@@ -112,23 +115,23 @@ def solve_local_patch(
     The sub-box must not touch the parent grid's boundary and must not wrap
     a periodic dim. Sweeps run ``chunk`` at a time; after each chunk the
     host reads the last sweep's max |dv| once, and the solve stops when it
-    is below ``tol`` or after ``max_sweeps``.
+    is below ``tol`` or after ``max_sweeps``. ``cuda_graph`` is
+    ``dense.make_dense_step``'s: on a CUDA device every sweep replays one
+    CUDA graph unless it is False (True on the CPU raises ValueError).
     """
     if lo is None or hi is None:
         lo, hi = default_patch_bounds(grid, margin)
     lo, hi = tuple(lo), tuple(hi)
     ops, v0 = make_patch_operands(problem, grid, value_fn, controls, lo, hi, device)
     subgrid = ops.grid
+    # clip=None, pin_input=False
+    run = sweep_runner(lambda v: dense_backup(ops, v)[0], ops, cuda_graph)
     v = v0.reshape(subgrid.shape).contiguous()
     res = float("inf")
     done = 0
     with torch.no_grad():
         while done < max_sweeps:
-            for i in range(chunk):
-                vnew, _ = dense_backup(ops, v)             # clip=None, pin_input=False
-                if i == chunk - 1:
-                    delta = torch.max(torch.abs(vnew - v))
-                v = vnew
+            v, delta = run(v, chunk)
             res = float(delta)
             done += chunk
             if res < tol:
@@ -177,6 +180,7 @@ def two_level_solve(
     patch_tol: float = 1e-5,
     generator: torch.Generator | None = None,
     verbose: bool = False,
+    cuda_graph: bool | None = None,
     **polish_kwargs,
 ):
     """Two-level TT + local-patch iteration, on the device of ``v0``:
@@ -189,7 +193,7 @@ def two_level_solve(
     neighbours, which improves the next patch's face data. The final
     composite is the production value field. ``generator`` draws the polish's
     cross index sets where the JAX package folds its key (None: a CPU
-    generator seeded 0).
+    generator seeded 0). ``cuda_graph`` is the patch solves'.
     """
     from c3sc_tpu_torch.solvers.polish import tt_polish
     from c3sc_tpu_torch.solvers.ttvi import make_bellman_kernel
@@ -203,7 +207,8 @@ def two_level_solve(
 
     def patch_of(v_tt):
         return solve_local_patch(problem, grid, lambda p: tt_lerp_eval(v_tt, grid, p), controls,
-                                 margin=margin, tol=patch_tol, device=dev)
+                                 margin=margin, tol=patch_tol, device=dev,
+                                 cuda_graph=cuda_graph)
 
     patch = patch_of(v_tt)
     for cycle in range(cycles):

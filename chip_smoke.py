@@ -22,9 +22,16 @@ non-zero, with no result line):
      launches between one CUDA-event pair and as the median of single
      launches; improve times at 1, 4, 9 and 25 candidates at 11^6; each
      sweep's bound (bytes at 3.35 TB/s, float32 operations at 67 TFLOP/s)
-  D  dense_vi on the quadcopter at 9^6 and 11^6 with the oracle's settings,
-     held against the stored solves experiments/artifacts/quad_dense_v{9,11}.npz,
-     with the solve's peak device memory
+     then, outside the counted runs, every graphed dense solve of D, H.1 and
+     I.3 against the eager loop (dense_vi(cuda_graph=False)): bit-equal, with
+     both walls and the capture time; one replay of each of the two graphs
+     under torch.profiler (9^6, the glider 41^4, the patch's sweep): the K1
+     kernels the card ran equal the launches the graphs counted; device
+     memory steady over replays (9^6)
+  D  dense_vi on the quadcopter at 9^6 and 11^6 with the oracle's settings
+     (on the card an outer sweep is one CUDA graph, replayed); held against
+     the stored solves experiments/artifacts/quad_dense_v{9,11}.npz, with the
+     solve's peak device memory
   E  256 x 400-step Euler–Maruyama rollouts under the implicit policy on the
      9^6 value, against the same rollouts on the stored value
   F  the fused TT value iteration (plain PyTorch, no hand kernel):
@@ -87,7 +94,11 @@ non-zero, with no result line):
          (7, 2) on quadcopter7 9^7 (25 candidates); the general entries on the
          glider 41^4 (9 candidates; its drift is undeclared) and on the
          pendulum at 1001^2 stripped of every declaration (per-candidate
-         variances and cost); max difference, ms a sweep, bounds
+         variances and cost); max difference, ms a sweep, each entry's share of
+         its bound; the improve's policy (with_policy=True: for general
+         operands the winner's operands from its epilogue) bit-equal to
+         gather_policy of its argmin, the evaluate under it bit-equal to the
+         improve
      I.2 tests/test_dubins.py on the card ((25, 25, 16), beta 0.5, 7
          candidates): fused rmax 20 against dense_vi, q95 < 0.05 and mean <
          0.02; closed loops of its rmax-28 solve under shared noise, cost
@@ -171,15 +182,20 @@ def phase_b_build():
     t0 = time.time()
     db._lib()
     log(f"[B] built and loaded K1 in {time.time() - t0:.1f} s ({_ext.build_dir()})")
-    # registers and spills of the 6D / 2-control instantiations, from ptxas -v
+    # registers and spills of the 6D / 2-control instantiations and of the
+    # glider's general ones (d = 4), from ptxas -v
     text = (_ext.build_dir() / "build.log").read_text()
-    for kind in ("dense_backup_kernel", "dense_evaluate_kernel"):
+    for kind, args, mangled in (("dense_backup_kernel", "6,2", "ILi6ELi2EjE"),
+                                ("dense_evaluate_kernel", "6,2", "ILi6ELi2EjE"),
+                                ("dense_backup_general_kernel", "4", "ILi4EjE"),
+                                ("dense_evaluate_general_kernel", "4", "ILi4EjE")):
         # ...ILi6ELi2EjE...: d = 6, du = 2, 32-bit (unsigned int) indices
-        m = re.search(kind + r"ILi6ELi2EjE.*?Used (\d+) registers", text, re.S)
-        spill = re.search(kind + r"ILi6ELi2EjE.*?(\d+) bytes spill stores", text, re.S)
+        m = re.search(kind + mangled + r".*?Used (\d+) registers", text, re.S)
+        spill = re.search(kind + mangled + r".*?(\d+) bytes spill stores", text, re.S)
         if m is None or spill is None:
-            raise RuntimeError(f"build.log has no ptxas line for {kind}<6,2,uint32>")
-        log(f"[B] {kind}<6,2,uint32>: registers {m.group(1)}, spill stores {spill.group(1)} B")
+            raise RuntimeError(f"build.log has no ptxas line for {kind}<{args},uint32>")
+        log(f"[B] {kind}<{args},uint32>: registers {m.group(1)}, spill stores "
+            f"{spill.group(1)} B")
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -213,6 +229,43 @@ def loop_ms(fn, launches=50, warmup=3):
     return start.elapsed_time(end) / launches
 
 
+def graph_ms(fn, launches=100, reps=5):
+    """Milliseconds a call of fn() takes on the device alone: ``launches``
+    calls captured as one CUDA graph, whose replay is timed between CUDA
+    events (median of ``reps`` replays). No host time enters, unlike
+    loop_ms, which a wrapper's host time limits once the kernel is shorter
+    than it. Data that fits the 50 MB L2 cache stays there from one launch
+    to the next, as it does between dense_vi's back-to-back sweeps."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return float(np.median(times))
+
+
+def _kernel_and_plain_ms(calls, plain_launches):
+    """Per-call ms of each of ``calls``: the kernels (keys not ending in
+    "plain") by graph_ms, the plain versions by loop_ms; and the kernels'
+    eager loop_ms beside, for comparison with earlier runs, which timed
+    the eager loop."""
+    times = {k: loop_ms(fn, plain_launches) if k.endswith("plain") else graph_ms(fn)
+             for k, fn in calls.items()}
+    eager = {k: loop_ms(fn, 100) for k, fn in calls.items() if not k.endswith("plain")}
+    return times, eager
+
+
 def sweep_bounds(ops):
     """The least time the card could take for one improve and one evaluate
     sweep on these operands: the larger of bytes / memory rate (each input
@@ -235,7 +288,9 @@ def sweep_bounds(ops):
 def general_sweep_bounds(ops):
     """sweep_bounds for the general entries: each node reads its per-candidate
     operands (fc, and s2c and gc where those are per candidate) once for
-    every candidate in improve and for its policy's candidate in evaluate."""
+    every candidate in improve and for its policy's candidate in evaluate.
+    The improve that dense_vi runs (with_policy=True) also writes its
+    policy's operands (the winner's fc, s2c, gc: ``cand_in`` bytes a node)."""
     N, d = ops.x.shape
     C = ops.uc.shape[0]
     node_in = 4 + 1 + 4 + (4 * d if ops.s2_k is not None else 0) + (4 if ops.q is not None else 0)
@@ -246,7 +301,7 @@ def general_sweep_bounds(ops):
     per_cand = 5 * d + 8 + (diffusion if ops.s2c_k is not None else 0)
     n_term = int(ops.t_mask.sum())
     return _bounds({
-        "dense_backup_general": (N * (node_in + C * cand_in + 8) + cand,
+        "dense_backup_general": (N * (node_in + C * cand_in + 8 + cand_in) + cand,
                                  N * (per_node + C * per_cand)),
         "dense_evaluate_general": ((N - n_term) * (node_in + cand_in + 8) + n_term * 9 + cand,
                                    (N - n_term) * (per_node + per_cand)),
@@ -264,12 +319,23 @@ def _bounds(work):
     return out
 
 
+def _policy_equal(a, b):
+    """Two DensePolicy objects hold the same indices and operands, bit for bit."""
+    return all((x is None and y is None) or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in ((a.best, b.best), (a.fpol_k, b.fpol_k), (a.s2pol_k, b.s2pol_k),
+                            (a.gpol, b.gpol)))
+
+
 def compare_sweep(ops, v, clip, pin_input, label, tag="C"):
     """Kernel against plain version for one improve and one evaluate sweep
-    (the structured entries, or the general ones for general operands)."""
+    (the structured entries, or the general ones for general operands). The
+    improve keeps its policy (with_policy=True, dense_vi's call): for general
+    operands its epilogue's operands must equal gather_policy of its argmin
+    (the plain torch.gather) bit for bit."""
     from c3sc_tpu_torch.ops import dense_backup as db
 
-    kv, kb = db.dense_backup(ops, v, clip, pin_input)
+    kv, kpol = db.dense_backup(ops, v, clip, pin_input, with_policy=True)
+    kb = kpol.best
     pv, pb = db.dense_backup_reference(ops, v, clip, pin_input)
     torch.cuda.synchronize()
     err = (kv - pv).abs()
@@ -279,7 +345,10 @@ def compare_sweep(ops, v, clip, pin_input, label, tag="C"):
     near_tie = (top2[1] - top2[0]) <= TIE_BAR * top2[0].abs().clamp(min=1.0)
     del rhs, top2
     best_bad = int(((kb != pb) & ~near_tie).sum())
-    ke = db.dense_evaluate(ops, v, pb)
+    if not _policy_equal(kpol, db.gather_policy(ops, kb)):
+        raise AssertionError(f"the improve's policy differs from gather_policy of its argmin: "
+                             f"{label}")
+    ke = db.dense_evaluate(ops, v, db.gather_policy(ops, pb))
     pe = db.dense_evaluate_reference(ops, v, pb)
     eerr = (ke - pe).abs()
     ebad = int((eerr > VALUE_BAR * pe.abs().clamp(min=1.0)).sum())
@@ -289,13 +358,13 @@ def compare_sweep(ops, v, clip, pin_input, label, tag="C"):
     if bad or best_bad or ebad or not torch.isfinite(kv).all() or not torch.isfinite(ke).all():
         raise AssertionError(f"K1 disagrees with its plain version: {label}")
     # the 64-bit-index form of both kernels decodes the same nodes
-    wv, wb = db.dense_backup(ops, v, clip, pin_input, _wide_index=True)
-    we = db.dense_evaluate(ops, v, pb, _wide_index=True)
-    if not (torch.equal(wv, kv) and torch.equal(wb, kb) and torch.equal(we, ke)):
+    wv, wpol = db.dense_backup(ops, v, clip, pin_input, with_policy=True, _wide_index=True)
+    we = db.dense_evaluate(ops, v, pb, _wide_index=True)   # bare indices: gathered first
+    if not (torch.equal(wv, kv) and _policy_equal(wpol, kpol) and torch.equal(we, ke)):
         raise AssertionError(f"K1 with 64-bit indices differs from 32-bit: {label}")
     if clip is None and not pin_input:
-        # dense_vi's pair: evaluating under improve's own argmin repeats its value
-        if not torch.equal(db.dense_evaluate(ops, v, kb), kv):
+        # dense_vi's pair: evaluating under improve's own policy repeats its value
+        if not torch.equal(db.dense_evaluate(ops, v, kpol), kv):
             raise AssertionError(f"improve and evaluate under its argmin are not bit-equal: {label}")
     return err.max().item(), eerr.max().item()
 
@@ -350,10 +419,12 @@ def phase_c_kernel_vs_plain(sizes=(9, 11)):
         single = {k: cuda_ms(fn) for k, fn in calls.items()}
         log(f"[C] quadcopter {n}^6 per-sweep ms (median of 20 single launches, CUDA events): "
             + ", ".join(f"{k} {x:.4f}" for k, x in single.items()))
-        times[n] = {k: loop_ms(fn, 100 if k.endswith("kernel") else 50)
-                    for k, fn in calls.items()}
-        log(f"[C] quadcopter {n}^6 per-sweep ms (loop of 100 kernel or 50 plain launches "
-            "between one event pair): " + ", ".join(f"{k} {x:.4f}" for k, x in times[n].items()))
+        times[n], eager = _kernel_and_plain_ms(calls, 50)
+        log(f"[C] quadcopter {n}^6 per-sweep ms (kernels: a CUDA graph of 100 launches; plain: "
+            "a loop of 50 between one event pair): "
+            + ", ".join(f"{k} {x:.4f}" for k, x in times[n].items())
+            + "; kernels as an eager loop of 100: "
+            + ", ".join(f"{k} {x:.4f}" for k, x in eager.items()))
         bounds[n] = sweep_bounds(ops)
         log(f"[C] quadcopter {n}^6 bounds: " + json.dumps(bounds[n]))
         if n == max(sizes):
@@ -369,6 +440,144 @@ def phase_c_kernel_vs_plain(sizes=(9, 11)):
     return errs, times, bounds
 
 
+def graphed_vs_eager(solve, label, tag):
+    """``solve(cuda_graph)`` -> a solution (``v``, ``sweeps``, ``residual``),
+    run eager, graphed, eager, graphed, outside the counted runs (the first
+    pair also takes the first-use costs): every run must agree bit for bit
+    and count the same K1 launches, replays included. Logs the walls and the
+    graphs' capture time."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+    from c3sc_tpu_torch.solvers.dense import GraphedSweeps
+
+    order, runs = (False, True, False, True), []
+    for graphed in order:
+        before, captures = db.launch_counts(), GraphedSweeps.captures
+        capture_s = GraphedSweeps.capture_seconds
+        sol, wall = _synced_s(lambda: solve(graphed))
+        made = {k: n - before[k] for k, n in db.launch_counts().items()}
+        runs.append((sol, wall, made, GraphedSweeps.captures - captures,
+                     GraphedSweeps.capture_seconds - capture_s))
+    e = runs[0][0]
+    for graphed, (g, _, made, caps, _) in zip(order, runs):
+        if not (torch.equal(e.v, g.v) and e.sweeps == g.sweeps and e.residual == g.residual):
+            raise AssertionError(f"{label}: the graphed solve differs from the eager one "
+                                 f"(max |dv| {(e.v - g.v).abs().max().item():.3e}, sweeps "
+                                 f"{e.sweeps} and {g.sweeps})")
+        if made != runs[0][2] or caps != (2 if graphed else 0):
+            raise AssertionError(f"{label}: launches eager {runs[0][2]}, then {made} "
+                                 f"({caps} captures)")
+    walls = [r[1] for r in runs]
+    log(f"[{tag}] {label}: eager and graphed bit-equal over {e.sweeps} sweeps; walls eager "
+        f"{walls[0]:.4f}, {walls[2]:.4f} s, graphed {walls[1]:.4f}, {walls[3]:.4f} s (2 graphs of "
+        f"one sweep captured in {runs[1][4]:.4f}, {runs[3][4]:.4f} s of it), eager / graphed "
+        f"{walls[2] / walls[3]:.2f}x in the second pair; launches each {runs[0][2]}")
+
+
+def replay_traced(step, v, label, tag):
+    """torch.profiler over ``step(v, 2)`` of a graphed step (both of its
+    graphs replayed once): the K1 kernels the card ran, by entry, must equal
+    the launches the step counted, which it takes from its captures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    v, res = step(v, 1)   # captures
+    float(res)
+    before = db.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        v, res = step(v, 2)
+        torch.cuda.synchronize()
+    counted_ = {k: n - before[k] for k, n in db.launch_counts().items()}
+    ran = dict.fromkeys(KERNELS, 0)
+    device_events = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        device_events += 1
+        m = re.search(r"\b(dense_(?:backup|evaluate)(?:_general)?)_kernel\b", e.name)
+        if m:
+            ran[m.group(1)] += 1
+    if device_events == 0:
+        raise RuntimeError(f"{label}: torch.profiler recorded no device events")
+    log(f"[{tag}] {label}: one replay of each graph under torch.profiler ran K1 kernels {ran} "
+        f"({device_events} device events); the counts added {counted_}")
+    if ran != counted_ or sum(ran.values()) == 0:
+        raise AssertionError(f"{label}: the graphs ran {ran} K1 kernels, the counts say "
+                             f"{counted_}")
+
+
+def _graph_memory_steady(step, v, chunk, replays=4):
+    """Device memory allocated after each of ``replays`` graphed chunks: the
+    first captures, the later ones must allocate nothing more than their
+    outputs (which the next chunk frees)."""
+    seen = []
+    for _ in range(replays):
+        v, res = step(v, chunk)
+        float(res)
+        seen.append(torch.cuda.memory_allocated())
+    if len(set(seen[1:])) != 1:
+        raise AssertionError(f"device memory grows over graph replays: {seen}")
+    return seen
+
+
+def phase_graph_checks(parts=("D", "H", "I")):
+    """The graphed solves against the eager loop, outside the counted runs
+    (which run the graphs alone): D's dense_vi at 9^6 and 11^6, H.1's patch,
+    I.3's glider at (15, 11, 11, 11) and 41^4 bit-equal with both walls; one
+    replay traced by torch.profiler (9^6, the glider 41^4, the patch); device
+    memory steady over replays (9^6)."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.solvers import dense_vi
+    from c3sc_tpu_torch.solvers.dense import make_dense_step, sweep_runner
+
+    if "D" in parts:
+        prob = make_problem("quadcopter", **QUAD)
+        uc = prob.control_candidates(5)
+        for n in (9, 11):
+            grid = prob.default_grid(n)
+            graphed_vs_eager(
+                lambda graphed: dense_vi(prob, grid, controls=uc, tol=1e-5, max_outer=3000,
+                                         chunk=25, eval_sweeps=10, device=DEVICE,
+                                         cuda_graph=graphed),
+                f"dense_vi quadcopter {n}^6", "D")
+        step, v0 = make_dense_step(prob, prob.default_grid(9), uc, DEVICE)
+        seen = _graph_memory_steady(step, v0, 25)
+        log(f"[D] 9^6 graphed chunks of 25: device memory after each of 4 chunks "
+            f"{[round(b / 2**20, 1) for b in seen]} MiB (steady after the capture)")
+        replay_traced(step, v0, "dense_vi quadcopter 9^6", "D")
+    if "H" in parts:
+        from c3sc_tpu_torch.convert import tt_from_npz
+        from c3sc_tpu_torch.ops import dense_backup as db
+        from c3sc_tpu_torch.ops.tt import tt_lerp_eval
+        from c3sc_tpu_torch.solvers.local_patch import (default_patch_bounds,
+                                                        make_patch_operands, solve_local_patch)
+
+        prob, grid, uc, _ = _flagship_setup()
+        v_tt = tt_from_npz(os.path.join(ART, "northstar_seed0_v.npz"), DEVICE)
+        tt_fn = lambda p: tt_lerp_eval(v_tt, grid, p)  # noqa: E731
+        graphed_vs_eager(lambda graphed: solve_local_patch(prob, grid, tt_fn, uc, margin=1,
+                                                           tol=1e-5, device=DEVICE,
+                                                           cuda_graph=graphed),
+                         "the seed-0 patch re-solved from the TT's faces", "H.1")
+        with torch.no_grad():
+            ops, v0 = make_patch_operands(prob, grid, tt_fn, uc, *default_patch_bounds(grid, 1),
+                                          DEVICE)
+            replay_traced(sweep_runner(lambda v: db.dense_backup(ops, v)[0], ops, True),
+                          v0.reshape(ops.grid.shape).contiguous(), "the patch's sweep", "H.1")
+    if "I" in parts:
+        prob = make_problem("glider")
+        uc = prob.control_candidates(9)
+        for shape, chunk in (((15, 11, 11, 11), 100), (41, 50)):
+            grid = prob.default_grid(shape)
+            graphed_vs_eager(
+                lambda graphed: dense_vi(prob, grid, controls=uc, tol=1e-5, max_outer=2000,
+                                         chunk=chunk, device=DEVICE, cuda_graph=graphed),
+                f"dense_vi glider {grid.shape}", "I.3")
+        step, v0 = make_dense_step(prob, prob.default_grid(41), uc, DEVICE)
+        replay_traced(step, v0, "dense_vi glider 41^4", "I.3")
+
+
 def phase_d_solve(sizes=(9, 11)):
     from c3sc_tpu_torch.convert import value_from_npz
     from c3sc_tpu_torch.models import make_problem
@@ -380,17 +589,15 @@ def phase_d_solve(sizes=(9, 11)):
     values = {}
     for n in sizes:
         grid = prob.default_grid(n)
-        before = (db.dense_backup.launches, db.dense_evaluate.launches)
+        before = db.launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        sol = dense_vi(prob, grid, controls=prob.control_candidates(5), tol=1e-5,
-                       max_outer=3000, chunk=25, eval_sweeps=10, device=dev)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        sol, wall = _synced_s(lambda: dense_vi(prob, grid, controls=prob.control_candidates(5),
+                                               tol=1e-5, max_outer=3000, chunk=25,
+                                               eval_sweeps=10, device=dev))
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
-        improves = db.dense_backup.launches - before[0]
-        evals = db.dense_evaluate.launches - before[1]
+        improves = db.dense_backup.launches - before["dense_backup"]
+        evals = db.dense_evaluate.launches - before["dense_evaluate"]
         if improves != sol.sweeps or evals != 10 * sol.sweeps:
             raise AssertionError(f"{n}^6: {improves} improve and {evals} evaluate launches "
                                  f"for {sol.sweeps} outer sweeps")
@@ -401,7 +608,7 @@ def phase_d_solve(sizes=(9, 11)):
             raise AssertionError(f"{n}^6: value is not finite of shape {grid.shape}")
         diff = (sol.v - value_from_npz(os.path.join(ART, f"quad_dense_v{n}.npz"), dev)).abs()
         dmax, dq95 = diff.max().item(), torch.quantile(diff.reshape(-1), 0.95).item()
-        log(f"[D] dense_vi quadcopter {n}^6: {sol.sweeps} outer sweeps, residual "
+        log(f"[D] dense_vi quadcopter {n}^6 (graphed): {sol.sweeps} outer sweeps, residual "
             f"{sol.residual:.3e}, floored {sol.floored}, wall {wall:.2f} s, launches "
             f"{improves} improve + {evals} evaluate, peak device memory {peak_mib:.1f} MiB; "
             f"vs stored v max {dmax:.3e} q95 {dq95:.3e}")
@@ -1083,8 +1290,9 @@ def phase_h1_committed():
     ops, v0 = make_patch_operands(prob, grid, tt_fn, uc, patch.lo, patch.hi, DEVICE)
     face = ops.t_mask.reshape(sol.v.shape)
     diff = (sol.v - patch.v).abs()
-    log(f"[H.1] patch re-solved from the TT's faces (solve_local_patch, K1): {sol.sweeps} sweeps "
-        f"in {wall:.3f} s, residual {sol.residual:.3e}, {launched} K1 improve launches; "
+    log(f"[H.1] patch re-solved from the TT's faces (solve_local_patch, K1): {sol.sweeps} sweeps, "
+        f"{wall:.4f} s (a sweep a graph replay), residual {sol.residual:.3e}, {launched} K1 "
+        f"improve launches; "
         f"|patch - stored patch| max {diff[face].max().item():.4e} on the faces (the stored "
         f"patch's faces are not the stored TT's), {diff[~face].max().item():.4e} inside")
     if launched != sol.sweeps or launched == 0 or not torch.isfinite(sol.v).all():
@@ -1267,11 +1475,11 @@ def compare_patch_kernel(ops, v0, stored, tol=1e-5, max_sweeps=2000, chunk=50):
                 break
         solved[name] = (v, done)
     diff = (solved["kernel"][0] - solved["plain"][0]).abs().max().item()
-    times = {name: loop_ms(lambda f=f: f(ops, stored), 100 if name == "kernel" else 20)
-             for name, f in (("kernel", db.dense_backup), ("plain", db.dense_backup_reference))}
+    times = {"kernel": graph_ms(lambda: db.dense_backup(ops, stored)),
+             "plain": loop_ms(lambda: db.dense_backup_reference(ops, stored), 20)}
     log(f"[H] patch solve on the card, kernel vs plain sweep: {solved['kernel'][1]} and "
         f"{solved['plain'][1]} sweeps, max|diff| {diff:.3e} (bar {VALUE_BAR} x max|v|); per "
-        f"sweep at {n}^6 (loop of launches between one event pair): kernel "
+        f"sweep at {n}^6 (kernel: a CUDA graph of 100 launches; plain: a loop of 20): kernel "
         f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms")
     if solved["kernel"][1] != solved["plain"][1] or \
             diff > VALUE_BAR * solved["plain"][0].abs().max().item():
@@ -1342,19 +1550,28 @@ def phase_i1_kernels():
                                  ("dense_vi", (None, False))):
             e = compare_sweep(ops, v, clip, pin, f"{label}, {sem} semantics", tag="I.1")
             errs[names[0]], errs[names[1]] = max(errs[names[0]], e[0]), max(errs[names[1]], e[1])
-        _, best = db.dense_backup(ops, v)
-        calls = dict(backup_kernel=lambda: db.dense_backup(ops, v),
-                     backup_plain=lambda: db.dense_backup_reference(ops, v),
-                     evaluate_kernel=lambda: db.dense_evaluate(ops, v, best),
-                     evaluate_plain=lambda: db.dense_evaluate_reference(ops, v, best))
-        times = {k: loop_ms(fn, 100 if k.endswith("kernel") else 10) for k, fn in calls.items()}
+        # dense_vi's calls: the improve keeps its policy, the evaluate reads it
+        _, pol = db.dense_backup(ops, v, with_policy=True)
+        calls = dict(backup_kernel=lambda: db.dense_backup(ops, v, with_policy=True),
+                     backup_plain=lambda: db.dense_backup_reference(ops, v, with_policy=True),
+                     evaluate_kernel=lambda: db.dense_evaluate(ops, v, pol),
+                     evaluate_plain=lambda: db.dense_evaluate_reference(ops, v, pol))
+        if ops.general:   # the improve without the policy's epilogue, for the record
+            calls["backup_kernel_without_policy"] = lambda: db.dense_backup(ops, v)
+        times, eager = _kernel_and_plain_ms(calls, 10)
         bounds = (general_sweep_bounds if ops.general else sweep_bounds)(ops)
-        log(f"[I.1] {label}: per-sweep ms (loop of 100 kernel or 10 plain launches between one "
-            "event pair): " + ", ".join(f"{k} {x:.4f}" for k, x in times.items())
-            + "; bounds " + json.dumps(bounds))
+        log(f"[I.1] {label}: per-sweep ms (kernels: a CUDA graph of 100 launches; plain: a loop "
+            "of 10 between one event pair): " + ", ".join(f"{k} {x:.4f}" for k, x in times.items())
+            + "; kernels as an eager loop of 100: "
+            + ", ".join(f"{k} {x:.4f}" for k, x in eager.items()) + "; bounds "
+            + json.dumps(bounds))
+        for entry, key in zip(names, ("backup_kernel", "evaluate_kernel")):
+            b = bounds[entry]["bound_ms"]
+            log(f"[I.1] {label}: {entry} {times[key]:.4f} ms against its bound {b:.4f} ms "
+                f"({bounds[entry]['bound_by']}): {100 * b / times[key]:.1f} % of the bound")
         if name == "glider":
             glider = dict(times=times, bounds=bounds)
-        del ops, v, best, calls
+        del ops, v, pol, calls
         torch.cuda.empty_cache()
     return errs, glider["times"], glider["bounds"]
 
@@ -1393,7 +1610,8 @@ def node_errors(grid, v_tt, v_dense):
 
 
 def _dense_at_width(prob, n, per_dim, tol, max_outer, label):
-    """dense_vi at a user's width: wall, sweeps, residual, peak device memory."""
+    """dense_vi at a user's width (graphed, the default on the card): wall,
+    sweeps, residual, peak device memory."""
     from c3sc_tpu_torch.solvers import dense_vi
 
     grid = prob.default_grid(n)
@@ -1401,12 +1619,13 @@ def _dense_at_width(prob, n, per_dim, tol, max_outer, label):
     torch.cuda.reset_peak_memory_stats()
     sol, wall = _synced_s(lambda: dense_vi(prob, grid, n_controls=per_dim, tol=tol,
                                            max_outer=max_outer, chunk=50, device=DEVICE))
+    peak = torch.cuda.max_memory_allocated() / 2**20
     if not torch.isfinite(sol.v).all():
         raise AssertionError(f"{label}: the dense value is not finite")
     log(f"[{label}] dense_vi {prob.name} {grid.shape} ({sol.v.numel()} nodes), "
-        f"{per_dim ** prob.du} candidates, tol {tol}: {sol.sweeps} outer sweeps in {wall:.2f} s, "
-        f"residual {sol.residual:.3e}, stopped at the f32 plateau {sol.floored}, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        f"{per_dim ** prob.du} candidates, tol {tol}, graphed: {sol.sweeps} outer sweeps in "
+        f"{wall:.2f} s, residual {sol.residual:.3e}, stopped at the f32 plateau {sol.floored}, "
+        f"peak device memory {peak:.1f} MiB")
     return sol
 
 
@@ -1467,8 +1686,8 @@ def phase_i3_glider():
     prob = make_problem("glider")
     grid = prob.default_grid((15, 11, 11, 11))
     uc = prob.control_candidates(9)
-    dense, wall = _synced_s(lambda: dense_vi(prob, grid, controls=uc, tol=1e-5, max_outer=2000,
-                                             chunk=100, device=DEVICE))
+    dense, wall = _synced_s(lambda: dense_vi(prob, grid, controls=uc, tol=1e-5,
+                                             max_outer=2000, chunk=100, device=DEVICE))
     sol = fused_tt_vi(prob, grid, controls=uc, rmax=16, seed=0, tol=2e-4, max_iters=1200,
                       eps_rank=1e-5, patience=40, device=DEVICE, cuda_graph=True)
     q95 = torch.quantile(node_errors(grid, sol.v, dense.v), 0.95).item()
@@ -1640,10 +1859,6 @@ def _entries():
     return {name: getattr(db, name) for name in KERNELS}
 
 
-def k1_launches():
-    return {name: fn.launches for name, fn in _entries().items()}
-
-
 def counted(label, fn, required=("dense_backup", "dense_evaluate"), totals=None):
     """Run one path of the main run with K1's launch counts (all four
     entries) set to 0 just before it and read just after; every kernel in
@@ -1652,7 +1867,9 @@ def counted(label, fn, required=("dense_backup", "dense_evaluate"), totals=None)
     for entry in _entries().values():
         entry.launches = 0
     out = fn()
-    made = k1_launches()
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    made = db.launch_counts()
     log(f"[{label}] K1 launches in phase {label}: {made}")
     for name in required:
         if made[name] == 0:
@@ -1687,6 +1904,7 @@ def main_flagship_only():
     phase_a_environment()
     phase_b_build()
     v9 = phase_d_solve(sizes=(9,))[9]
+    phase_graph_checks(parts=("H",))
     t0 = time.perf_counter()
     h1 = counted("H", lambda: phase_h_flagship(v9, cycles=6, n_mpc=256),
                  required=("dense_backup",))
@@ -1701,6 +1919,7 @@ def main_models_only():
     phase_b_build()
     t0 = time.perf_counter()
     phase_i1_kernels()
+    phase_graph_checks(parts=("I",))
     counted("I", lambda: phase_i_models(full=True), required=KERNELS)
     log(f"[timing] phase I {time.perf_counter() - t0:.1f} s")
     return 0
@@ -1718,6 +1937,7 @@ def main():
     phase_b_build()
     marks.append(("A+B", time.perf_counter()))
     errs, times, bounds = phase_c_kernel_vs_plain()
+    phase_graph_checks()
     marks.append(("C", time.perf_counter()))
     # the main path's run, one path at a time: each counted() sets the counts
     # to 0 just before its path and reads them just after

@@ -348,3 +348,141 @@ def test_glider_dense_vi_runs_through_the_general_entries(cuda):
     assert made == [0, 0, sol.sweeps, 10 * sol.sweeps]
     ref = dense_vi(tp, grid, controls=uc, tol=1e-5, max_outer=400, chunk=50, device="cpu").v.numpy()
     assert np.abs(sol.v.cpu().numpy() - ref).max() <= 1e-4 * (ref.max() - ref.min())
+
+
+@pytest.mark.parametrize("case", list(_general_cases()))
+def test_improve_policy_is_gather_policy_and_evaluate_reads_it(cuda, case):
+    """The general improve's epilogue (with_policy=True) writes the winner's
+    operands: bit for bit gather_policy of its argmin, under both semantics,
+    in both index widths. The redesigned evaluate reads them: under the
+    improve's own policy it repeats the improve's value bit for bit; under
+    the plain argmin it is within 2e-4 of the plain version and equal to the
+    evaluate under the bare indices (which the wrapper gathers first); a bad
+    index still gives NaN at its node."""
+    make, n, n_cand = _general_cases()[case]
+    tp = make()
+    grid = tp.default_grid(n)
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
+    v = _random_v(grid.shape, cuda)
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        for wide in (False, True):
+            got, pol = db.dense_backup(ops, v, clip, pin, with_policy=True, _wide_index=wide)
+            want = db.gather_policy(ops, pol.best)
+            for a, b in ((pol.best, want.best), (pol.fpol_k, want.fpol_k),
+                         (pol.s2pol_k, want.s2pol_k), (pol.gpol, want.gpol)):
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+            bare_v, bare_best = db.dense_backup(ops, v, clip, pin, _wide_index=wide)
+            assert torch.equal(bare_v, got) and torch.equal(bare_best, pol.best)
+        if clip is None:
+            assert torch.equal(db.dense_evaluate(ops, v, pol), got)
+    _, wbest = db.dense_backup_reference(ops, v)
+    want = db.dense_evaluate_reference(ops, v, wbest)
+    got = db.dense_evaluate(ops, v, db.gather_policy(ops, wbest))
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert torch.equal(db.dense_evaluate(ops, v, wbest), got)
+    bad = wbest.clone()
+    node = int(torch.nonzero(~ops.t_mask)[0])
+    bad[node] = ops.uc.shape[0]
+    assert torch.isnan(db.dense_evaluate(ops, v, bad).reshape(-1)[node])
+
+
+def _graphed_and_eager(solve):
+    """solve(cuda_graph) run eager, then graphed: both results and the K1
+    launches and graph captures each made."""
+    from c3sc_tpu_torch.solvers.dense import GraphedSweeps
+
+    out = []
+    for graphed in (False, True):
+        before, captures = db.launch_counts(), GraphedSweeps.captures
+        sol = solve(graphed)
+        torch.cuda.synchronize()
+        out.append((sol, {k: n - before[k] for k, n in db.launch_counts().items()},
+                    GraphedSweeps.captures - captures))
+    return out
+
+
+@pytest.mark.parametrize("name", ["quadcopter", "glider"])
+def test_graphed_dense_vi_is_bit_equal_to_eager(cuda, name):
+    """dense_vi on the card (cuda_graph=None) replays two captured graphs of
+    one outer sweep, the second with the residual, for every chunk, the
+    shorter last one too: the value, the sweeps and the residual equal the
+    eager loop's (cuda_graph=False) bit for bit, and the launch counts count
+    every replayed launch, as many as the eager loop's."""
+    tp = tm.make_problem(name, **(QUAD if name == "quadcopter" else {}))
+    grid = tp.default_grid(5 if name == "quadcopter" else (9, 7, 7, 7))
+    uc = tp.control_candidates(5)
+    (eager, e_made, e_caps), (graphed, g_made, g_caps) = _graphed_and_eager(
+        lambda graphed: dense_vi(tp, grid, controls=uc, tol=1e-5, max_outer=107, chunk=25,
+                                 device=cuda, cuda_graph=None if graphed else False))
+    assert torch.equal(eager.v, graphed.v)
+    assert (eager.sweeps, eager.residual) == (graphed.sweeps, graphed.residual)
+    assert e_made == g_made and e_caps == 0
+    entries = ("dense_backup_general", "dense_evaluate_general") if name == "glider" else \
+        ("dense_backup", "dense_evaluate")
+    assert (g_made[entries[0]], g_made[entries[1]]) == (graphed.sweeps, 10 * graphed.sweeps)
+    assert g_caps == 2
+
+
+def test_graphed_chunks_allocate_nothing_after_the_capture(cuda):
+    """The tensors of a graphed chunk come from the graph's pool at the
+    capture: device memory stays the same over later replays."""
+    from c3sc_tpu_torch.solvers.dense import make_dense_step
+
+    tp = tm.make_problem("glider")
+    step, v = make_dense_step(tp, tp.default_grid((9, 7, 7, 7)), tp.control_candidates(5),
+                              cuda, cuda_graph=True)
+    seen = []
+    for _ in range(4):
+        v, res = step(v, 10)
+        float(res)
+        seen.append(torch.cuda.memory_allocated(cuda))
+    assert len(set(seen)) == 1, seen
+
+
+def test_graphed_patch_is_bit_equal_to_eager(cuda):
+    """solve_local_patch on the card (a graph of one improve sweep and one
+    with the residual, replayed) equals the eager patch solve bit for bit,
+    with one counted improve launch per sweep."""
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.solvers.local_patch import solve_local_patch
+
+    tp = tm.make_problem("quadcopter", **QUAD)
+    grid = tp.default_grid(9)
+    v9 = value_from_npz(V5.replace("quad_dense_v5", "quad_dense_v9"), cuda)
+    (eager, e_made, _), (graphed, g_made, caps) = _graphed_and_eager(
+        lambda graphed: solve_local_patch(tp, grid, lambda p: multilinear_interp(grid, v9, p),
+                                          tp.control_candidates(5), margin=1, tol=1e-5,
+                                          max_sweeps=200, chunk=20, device=cuda,
+                                          cuda_graph=None if graphed else False))
+    assert torch.equal(eager.v, graphed.v)
+    assert (eager.sweeps, eager.residual) == (graphed.sweeps, graphed.residual)
+    assert e_made == g_made and g_made["dense_backup"] == graphed.sweeps and caps == 2
+
+
+def test_a_graph_replay_runs_the_kernels_it_counts(cuda):
+    """The launch counts of a graphed step come from its captures: one
+    replay of each of its two graphs, traced by torch.profiler, runs as many
+    K1 kernels of each entry as the counts add."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from c3sc_tpu_torch.solvers.dense import make_dense_step
+
+    tp = tm.make_problem("glider")
+    step, v = make_dense_step(tp, tp.default_grid((9, 7, 7, 7)), tp.control_candidates(5), cuda)
+    v, _ = step(v, 1)
+    torch.cuda.synchronize()
+    before = db.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(v, 2)
+        torch.cuda.synchronize()
+    added = {k: n - before[k] for k, n in db.launch_counts().items()}
+    ran = dict.fromkeys(db.ENTRIES, 0)
+    for e in prof.events():
+        m = re.search(r"\b(dense_(?:backup|evaluate)(?:_general)?)_kernel\b", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            ran[m.group(1)] += 1
+    assert ran == added == {"dense_backup": 0, "dense_evaluate": 0,
+                            "dense_backup_general": 2, "dense_evaluate_general": 20}
