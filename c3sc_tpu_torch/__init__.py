@@ -10,25 +10,32 @@ unless the caller passes ``device="cpu"``; functions that take tensors
 follow their inputs.
 
 Ported so far (the dense Bellman path, the fused TT value iteration, the
-receding-horizon control path and the flagship accuracy stack):
+receding-horizon control path, the flagship accuracy stack and the
+reference solvers whose loop runs on the host):
   grids.py            tensor-product grids (uniform and non-uniform)
   models/             ControlProblem + quadcopter, pendulum, LQ
   ops/mca.py          Kushner–Dupuis stencil
   ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cu)
   ops/interp.py       multilinear interpolation
   ops/tt.py           padded tensor trains: evaluation, add, round, refine, save/load
-  ops/cross.py        nested cross index sets (CrossState)
+  ops/cross.py        TT cross with maxvol (tt_cross) and its index sets (CrossState)
   solvers/dense.py    dense_vi (modified policy iteration), dense_policy
-  solvers/fused.py    make_fused_vi, fused_tt_vi (square scheme; plain PyTorch)
-  solvers/ttvi.py     the TT Bellman backup and its chunked kernel
+  solvers/fused.py    make_fused_vi, fused_tt_vi, fused_tt_vi_refined (square and
+                      rectangular-maxvol schemes, residual solves; plain PyTorch)
+  solvers/multilevel.py  coarse-to-fine warm starts of the fused solver
+  solvers/ttvi.py     the TT Bellman backup, its chunked kernel, tt_vi
+  solvers/dmrg.py     two-site DMRG cross
+  solvers/ttpi.py     TT policy iteration
+  solvers/pials.py    policy iteration with ALS least-squares evaluation
   solvers/polish.py   two-site polish, level and mode corrections
   solvers/twogrid.py  coarse-grid correction
   solvers/gating.py   measured accept/reject of correction stages
   solvers/local_patch.py  the local dense patch (kernel K1) and the two-level composite
-  sim/                implicit policy, batched rollouts, fused MPC, tracking,
-                      iLQR and receding-horizon MPC
+  sim/                implicit policy, batched rollouts, MPC on tt_vi, fused MPC,
+                      tracking, iLQR and receding-horizon MPC
   convert.py          numpy carriers of state from the JAX package
   device.py           the default device of every ``device=None``; constants kept on it
+  seeds.py            the seeds of sub-solves (an int, or one seed a sub-solve)
 
 This package never imports ``jax`` or ``c3sc_tpu``.
 """

@@ -1,5 +1,7 @@
-"""Fused tensor-train value iteration — port of ``c3sc_tpu/solvers/fused.py``
-(the square interpolation scheme).
+"""Fused tensor-train value iteration — port of ``c3sc_tpu/solvers/fused.py``:
+the square interpolation scheme, the rectangular-maxvol scheme
+(``oversample > 0``), residual solves against a frozen base (``base=``) and
+the iterative refinement built on them (``fused_tt_vi_refined``).
 
 One VI iteration is a left-to-right plus a right-to-left cross sweep over
 the Bellman backup: per core, evaluate the backup on the structured fiber
@@ -28,8 +30,11 @@ as the warm replans of MPC and tracking need. Under ``cuda_graph=True`` it
 replays the same captured iteration as ``run_fn``, with a flag on the device
 that forces it active.
 
-Not ported yet (each raises ``NotImplementedError``): ``oversample > 0``
-(rectangular maxvol), ``base=`` and ``fused_tt_vi_refined``, ``mesh=``,
+Seeds: ``fused_tt_vi_refined(seed=)`` is an int or a sequence of the
+sub-solves' seeds (``c3sc_tpu_torch.seeds``). A JAX key ``k`` reaches
+``init_fn`` as the integer ``key_data(k)[-1]``.
+
+Not ported yet (each raises ``NotImplementedError``): ``mesh=``,
 ``checkpoint_path`` / ``resume_from``, ``_cholqr2``.
 """
 
@@ -38,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -48,8 +53,11 @@ from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
 from c3sc_tpu_torch.ops.argmin import first_argmin
-from c3sc_tpu_torch.ops.tt import TT, _concrete_ranks, _repad, tt_gather_eval, tt_lerp_eval
-from c3sc_tpu_torch.solvers.ttvi import check_refine_method, refine_controls
+from c3sc_tpu_torch.ops.tt import (TT, _concrete_ranks, _repad, tt_add, tt_gather_eval,
+                                   tt_lerp_eval, tt_round)
+from c3sc_tpu_torch.seeds import seed_stream
+from c3sc_tpu_torch.solvers.ttvi import (bellman_residual_sample, check_refine_method,
+                                         refine_controls)
 
 
 class FusedSolver(NamedTuple):
@@ -77,8 +85,8 @@ class FusedCarry(NamedTuple):
     right: torch.Tensor       # [d+1, R, d] int64
     rl: torch.Tensor          # [d+1] int32 active left-set sizes
     rr: torch.Tensor          # [d+1] int32 active right-set sizes
-    # FIT ranks per bond — equal to rl/rr in the square scheme (they differ
-    # only under oversampling, which is not ported yet)
+    # FIT ranks per bond — equal to rl/rr in the square scheme; under
+    # oversampling rl/rr carry the sample-row counts s >= the fit ranks
     rlf: torch.Tensor         # [d+1] int32 active left FIT ranks
     rrf: torch.Tensor         # [d+1] int32 active right FIT ranks
     rows_l: torch.Tensor      # [d, R] int64 — pivot rows per core (L2R)
@@ -111,11 +119,53 @@ def _cholqr2(C):
 
 
 def _interp_from_rows_ls(qe, rows, r_new, s_rows):
-    _not_ported("_interp_from_rows_ls (oversample > 0)", "the rectangular-maxvol scheme")
+    """Rectangular-maxvol core G = qe pinv(qe[rows]) [m, R] with
+    ``s_rows >= r_new`` active sample rows (Mikhalev-Oseledets rect-maxvol).
+
+    The square interpolation core is an oblique projector whose norm the
+    d-fold core chain amplifies; a least-squares fit onto the same column
+    basis from ~2x rows approaches an orthogonal projection on the sampled
+    rows. ``s_rows == r_new`` recovers the square scheme (pinv of a square
+    nonsingular matrix). The bond then carries s_rows columns (rank r_new
+    content, zero beyond s_rows); rows beyond s_rows are zeroed before the
+    normal equations. The solve does not check ``info`` on the host.
+    """
+    R = qe.shape[1]
+    col = torch.arange(R, device=qe.device)
+    rowmask = (col < s_rows).to(qe.dtype)
+    colmask = (col < r_new).to(qe.dtype)
+    sub = qe[rows] * rowmask[:, None] * colmask[None, :]   # [R(s-pad), R(col-pad)]
+    # normal equations with a scaled ridge; inactive columns get the identity
+    # so the solve stays nonsingular and their G columns are exactly zero
+    Gm = sub.T @ sub
+    ridge = 1e-6 * torch.clamp(torch.trace(Gm) / torch.clamp(r_new, min=1), min=1e-30)
+    Gm = Gm + ridge * torch.eye(R, dtype=qe.dtype, device=qe.device)
+    Gm = Gm + torch.diag((col >= r_new).to(qe.dtype))
+    X, _ = torch.linalg.solve_ex(Gm, sub.T, check_errors=False)   # pinv(sub) [R(col), R(s)]
+    G = (qe * colmask[None, :]) @ X
+    return G * rowmask[None, :]
 
 
 def _extend_rows(qe, rows, r_new, s_rows):
-    _not_ported("_extend_rows (oversample > 0)", "the rectangular-maxvol scheme")
+    """Extend r_new maxvol rows to ``s_rows`` in all by top leverage (row norm
+    of the orthonormal basis), excluding rows already selected.
+
+    The maxvol swaps can emit duplicate row ids, so the selected set is
+    marked with a scatter-max (a scatter-set with duplicates is order-
+    undefined and could clear a selected row). Ties in leverage go to the
+    lowest index, as ``jax.lax.top_k`` breaks them: a stable descending sort.
+    """
+    m, R = qe.shape
+    col = torch.arange(R, device=qe.device)
+    lev = torch.sum(qe * qe, dim=1)
+    taken = torch.zeros(m, dtype=torch.int32, device=qe.device).scatter_reduce(
+        0, rows, (col < r_new).to(torch.int32), "amax", include_self=True) > 0
+    lev = torch.where(taken, torch.full_like(lev, -float("inf")), lev)
+    extra = torch.sort(lev, descending=True, stable=True).indices[:R]   # [R] extensions
+    # positions [r_new, s_rows) take extension rows; beyond s_rows keep 0
+    ext = extra[torch.clamp(col - r_new, 0, R - 1)]
+    return torch.where(col < r_new, rows,
+                       torch.where(col < s_rows, ext, torch.zeros_like(rows)))
 
 
 def _first_argmax(a):
@@ -362,12 +412,14 @@ def make_structured_fiber_eval(grid: Grid, k: int, rmax: int, dtype=torch.float3
     one [R,R] x [R,n,R] x [R,R] contraction — O(d n R^3) total against
     O(d^2 n R^4) for independent gather-evals, with no [B, R, R] gather.
 
-    Where the JAX version vmaps a per-row function over the R index rows,
+    Where the JAX version vmaps a per-row function over the index rows,
     every step here is batched over that axis (gathers ``cores[j][:, idx[:,
-    j], :]`` give one [R, R, R] stack of per-row matrices, then ``matmul``).
+    j], :]`` give one [A, R, R] stack of per-row matrices, then ``matmul``).
+    The row counts A and B are free: a base TT padded to ``rmax`` is
+    evaluated on the index sets of a correction padded otherwise.
 
-    Returns fn(cores, left_k [R,d], right_k1 [R,d]) ->
-      (vp [d, R, n, R], vm [d, R, n, R], v0 [R, n, R]): the + and - neighbor
+    Returns fn(cores, left_k [A,d], right_k1 [B,d]) ->
+      (vp [d, A, n, B], vm [d, A, n, B], v0 [A, n, B]): the + and - neighbor
       values per dim and the centre values.
     """
     d = grid.ndim
@@ -389,19 +441,20 @@ def make_structured_fiber_eval(grid: Grid, k: int, rmax: int, dtype=torch.float3
 
     def fn(cores, left_k, right_k1):
         dev = cores[0].device
+        A, Bn = left_k.shape[0], right_k1.shape[0]
         # e_0 for every row
-        e0 = (torch.arange(R, device=dev) == 0).to(dtype).expand(R, R)
-        eye = torch.eye(R, dtype=dtype, device=dev).expand(R, R, R)
+        e0 = (torch.arange(R, device=dev) == 0).to(dtype)
+        eye = torch.eye(R, dtype=dtype, device=dev)
         pm_map = const_tensor(pm_np, torch.int64, dev)
 
         # ---- left rows a: prefix vectors p, suffix matrices S ----
         M = [row_mats(cores[j], left_k[:, j]) for j in range(k)]     # [A, R, R]
-        p = e0
+        p = e0.expand(A, R)
         ps = []
         for j in range(k):
             ps.append(p)
             p = torch.matmul(p[:, None, :], M[j])[:, 0]
-        S = eye
+        S = eye.expand(A, R, R)
         Ss = [None] * k
         for j in range(k - 1, -1, -1):
             Ss[j] = S
@@ -415,12 +468,12 @@ def make_structured_fiber_eval(grid: Grid, k: int, rmax: int, dtype=torch.float3
 
         # ---- right rows b: suffix vectors s, prefix matrices T ----
         N = {j: row_mats(cores[j], right_k1[:, j]) for j in range(k + 1, d)}
-        s = e0
+        s = e0.expand(Bn, R)
         sa = [None] * d  # sa[j]: suffix vector for cores j+1..d-1
         for j in range(d - 1, k, -1):
             sa[j] = s
             s = torch.matmul(N[j], s[:, :, None])[:, :, 0]
-        T = eye
+        T = eye.expand(Bn, R, R)
         Ts = [None] * d  # Ts[j]: prefix matrix cores k+1..j-1
         for j in range(k + 1, d):
             Ts[j] = T
@@ -441,7 +494,7 @@ def make_structured_fiber_eval(grid: Grid, k: int, rmax: int, dtype=torch.float3
             Pst = torch.stack(P2, dim=2)                 # [2, A, k, R]
             parts.append(torch.einsum("zamr,rnb->zmanb", Pst, Gs0))
         own = torch.einsum("ar,rnb->anb", p0, Gs0[:, pm_map])        # [A, 2n, B]
-        parts.append(own.reshape(R, 2, n, R).permute(1, 0, 2, 3)[:, None])
+        parts.append(own.reshape(A, 2, n, Bn).permute(1, 0, 2, 3)[:, None])
         if k < d - 1:
             p0G = torch.einsum("ar,rns->ans", p0, G)     # shared left product
             Sst = torch.stack(S2, dim=2)                 # [2, B, d-k-1, R]
@@ -450,7 +503,7 @@ def make_structured_fiber_eval(grid: Grid, k: int, rmax: int, dtype=torch.float3
         # centre values at the block nodes themselves, one extra contraction
         # on the shared right product
         v0 = torch.einsum("ar,rnb->anb", p0, Gs0)
-        return both[0], both[1], v0  # [d, R, n, R] x2, [R, n, R]
+        return both[0], both[1], v0  # [d, A, n, B] x2, [A, n, B]
 
     return fn
 
@@ -469,12 +522,21 @@ def _scrub(val, vb):
 
 def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
                       dtype=torch.float32, debug_identity: bool = False,
-                      refine_steps: int = 0, refine_method: str = "pgd"):
+                      refine_steps: int = 0, refine_method: str = "pgd",
+                      base: TT | None = None):
     """Block K2 of a core-step: the Bellman backup on the structured fiber
     block of core k. ``uc [C, du]`` is the candidate set as a tensor on the
     solve's device. ``refine_steps > 0`` polishes every node's brute-force
     winner with that many continuous steps (``solvers/ttvi.refine_controls``)
     after the min, before the clip and the pin.
+
+    ``base``: a FIXED value TT. The backup is then that of the TOTAL value
+    base + w (the base's neighbour values added, value bounds and terminal
+    pinning applied to the total) minus the base at the block nodes: the
+    fiber values of the residual fixed point w = T(base + w) - base. The
+    base's structured evaluator is built at the base's own padding and
+    shares the correction's index sets; its cores are moved to the solve's
+    device once, here, and live as long as the returned function.
 
     Returns fn(cores, ranks, k, left_k [R, d], right_k1 [R, d]) -> [R, n_k, R]:
     the backed-up value at every node of I_k x grid_k x J_{k+1}, with terminal
@@ -485,6 +547,10 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
     shape = grid.shape
     device = uc.device
     vb = problem.value_bounds
+    if base is not None:
+        R_base = base.rmax
+        base_cores = tuple(c.to(device=device, dtype=dtype) for c in base.cores)
+        struct_eval_base = [make_structured_fiber_eval(grid, k, R_base, dtype) for k in range(d)]
 
     def _build_idx(k, left_k, right_k1):
         """Evaluation multi-indices [R, n_k, R, d] for core k: left set's
@@ -509,6 +575,10 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
                 return val.to(dtype).reshape(R, n, R)
             # padded-zero cores make the products exact without the ranks
             vp, vm, _ = struct_eval[k](cores, left_k, right_k1)  # [d, R, n, R]
+            if base is not None:
+                # back up the TOTAL value: neighbours of base + correction
+                vpb, vmb, base_v0 = struct_eval_base[k](base_cores, left_k, right_k1)
+                vp, vm = vp + vpb, vm + vmb
             B = R * n * R
             x = grid.index_to_state(flat_idx).to(dtype)          # [B, d]
             vn = torch.stack([vp, vm], dim=0).reshape(2, d, B).permute(2, 0, 1)
@@ -548,6 +618,11 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
             # fitting boundary — keeps the loop state finite: a scrubbed
             # fiber value is one bad sample the next sweep re-fits.
             val = _scrub(val, vb)
+            if base is not None:
+                # fit only the correction: the (pinned, bounded) total backup
+                # minus the frozen base at the block nodes (centre values of
+                # the structured evaluator, not a gather)
+                val = val - base_v0.reshape(-1)
             return val.to(dtype).reshape(R, n, R)
 
     return _eval_fibers
@@ -615,6 +690,16 @@ def make_fused_vi(
     winner with that many continuous steps, ``refine_method`` 'pgd' or
     'lbfgs' (see ``make_fiber_backup``).
 
+    ``oversample``: rectangular-maxvol oversampling factor. 0 (default) is
+    the square interpolation scheme; ``os > 0`` carries
+    ``s = ceil((1+os) r)`` sample rows per bond and builds cores by least
+    squares onto the fitted basis (``_interp_from_rows_ls``). Fit ranks are
+    capped at R/(1+os) so the extended rows fit the padding.
+
+    ``base``: a FIXED value TT; the solver then solves the residual fixed
+    point w = T(base + w) - base and carries only w (``make_fiber_backup``).
+    The probe, where there is one, scores the total base + w.
+
     Stopping (any of):
       - per-iteration sample residual < tol;
       - change over a whole ``window`` of iterations < tol;
@@ -631,13 +716,8 @@ def make_fused_vi(
     loop is active the device count advances by one per iteration, and once
     it is inactive every result is discarded), so no iteration reads it.
 
-    Not ported yet: ``oversample > 0``, ``base=``, ``mesh=``.
+    Not ported yet: ``mesh=``.
     """
-    if oversample > 0:
-        _not_ported("oversample > 0", "the rectangular-maxvol scheme "
-                    "(_interp_from_rows_ls, _extend_rows)")
-    if base is not None:
-        _not_ported("base= (residual solves)", "fused_tt_vi_refined and tt_add at growing padding")
     if mesh is not None:
         _not_ported("mesh=", "a multi-GPU fiber sharding (parallel/)")
     if target_mode not in ("self", "frozen"):
@@ -658,6 +738,7 @@ def make_fused_vi(
     # the R2L pass can assign an edge bond a rank above the OTHER side's
     # feasible dimension (one exactly-redundant column of f32 noise).
     bond_cap = [min(math.prod(shape[:k]), math.prod(shape[k:]), R) for k in range(d + 1)]
+    fit_cap = int(R / (1.0 + oversample)) if oversample > 0 else R
     uc = torch.as_tensor(np.asarray(controls), dtype=dtype, device=device)
     # host streams, drawn exactly as the JAX package draws them (numpy seed
     # 777: the sample nodes, then both kick-noise lists), then moved over
@@ -697,19 +778,44 @@ def make_fused_vi(
                                   generator=torch.Generator().manual_seed(31337),
                                   dtype=dtype).to(device)
 
+        base_tt = None if base is None else TT(
+            tuple(c.to(device=device, dtype=dtype) for c in base.cores),
+            base.ranks.to(device=device, dtype=torch.int32))
+
         def _probe_cost(v_tt: TT):
-            pol = make_implicit_policy(problem, grid, lambda p: tt_lerp_eval(v_tt, grid, p), uc)
+            if base_tt is None:
+                vfn = lambda p: tt_lerp_eval(v_tt, grid, p)  # noqa: E731
+            else:
+                vfn = lambda p: tt_lerp_eval(v_tt, grid, p) + tt_lerp_eval(base_tt, grid, p)  # noqa: E731
+            pol = make_implicit_policy(problem, grid, vfn, uc)
             traj = _rollout(problem, grid, pol, probe_x0, probe_dt, probe_steps,
                             noise=probe_noise, policy_every=2)
             return traj.cost.mean().to(dtype)
 
     _eval_fibers = make_fiber_backup(problem, grid, uc, R, dtype, debug_identity,
-                                     refine_steps, refine_method)
+                                     refine_steps, refine_method, base)
 
-    def fit_core(qe, rows_prev, r_new, r_prev_fit, in_warmup, frozen):
-        """Pivot rows + core of the square scheme."""
-        rows = _hysteresis_rows(qe, rows_prev, r_new, r_prev_fit, in_warmup, frozen)
-        return rows, _interp_from_rows(qe, rows, r_new)
+    def fit_core(qe, rows_prev, r_new, r_prev_fit, cap, s_prev, in_warmup, frozen):
+        """Pivot rows + core for the selected scheme; returns (rows, G,
+        bond_new, fit_new): the bond's sample-row count and its fit rank."""
+        if oversample <= 0:
+            rows = _hysteresis_rows(qe, rows_prev, r_new, r_prev_fit, in_warmup, frozen)
+            return rows, _interp_from_rows(qe, rows, r_new), r_new, r_new
+        s_new = torch.ceil((1.0 + oversample) * r_new).to(torch.int32)
+        s_new = torch.minimum(torch.maximum(s_new, r_new), torch.clamp(cap, max=R).to(torch.int32))
+        # a frozen sweep holds the bond size exactly (a changed sample mask
+        # re-excites the oscillation the freeze exists to kill)
+        s_new = torch.where(frozen, s_prev, s_new)
+        # the leverage EXTENSION lives inside the hysteresis/freeze decision:
+        # recomputed from each sweep's fresh basis, it made the frozen
+        # rectangular operator nondeterministic
+        rows_new = _extend_rows(qe, _pivot_rows(qe, r_new), r_new, s_new)
+        switch = (~frozen) & (
+            in_warmup
+            | (r_new != r_prev_fit)
+            | (_logvol(qe, rows_new, r_new) > _logvol(qe, rows_prev, r_new) + 0.4))
+        rows = torch.where(switch, rows_new, rows_prev)
+        return rows, _interp_from_rows_ls(qe, rows, r_new, s_new), s_new, r_new
 
     def one_sweep(st, tgt_cores, tgt_ranks, frozen, in_warmup, self_targeted: bool):
         """One full cross sweep (L2R + R2L) fitting the Bellman backup of a
@@ -739,20 +845,23 @@ def make_fused_vi(
                 col_mask = (arR < rr[k + 1]).to(dtype)
                 C = vals.reshape(R * n, R) * row_mask[:, None] * col_mask[None, :]
                 cap_k = torch.clamp(rl[k] * n, max=bond_cap[k + 1])
+                # with oversampling the fit rank leaves room for its extended
+                # sample rows within the static padding
                 qe, r_need, r_new = _orth_basis_and_rank(
-                    C, noise_l2r[k], eps_rank, kick, cap_k, row_mask, rlf[k + 1], frozen,
-                    sync_free)
-                rows, G = fit_core(qe, rows_l[k], r_new, rlf[k + 1], in_warmup, frozen)
+                    C, noise_l2r[k], eps_rank, kick, torch.clamp(cap_k, max=fit_cap), row_mask,
+                    rlf[k + 1], frozen, sync_free)
+                rows, G, bond_new, fit_new = fit_core(qe, rows_l[k], r_new, rlf[k + 1], cap_k,
+                                                      rl[k + 1], in_warmup, frozen)
                 rows_l[k] = rows
-                rlf[k + 1] = r_new
+                rlf[k + 1] = fit_new
                 new_cores[k] = G.reshape(R, n, R)
                 a, i = rows // n, rows % n
                 newleft = torch.zeros((R, d), dtype=left.dtype, device=device)
                 newleft[:, :k] = left[k][a][:, :k]
                 newleft[:, k] = i
                 left[k + 1] = newleft
-                rl[k + 1] = r_new
-                new_ranks[k + 1] = r_new
+                rl[k + 1] = bond_new
+                new_ranks[k + 1] = bond_new
         # last core: direct evaluation
         n = shape[d - 1]
         vals = _eval_fibers(tgt_cores, tgt_ranks, d - 1, left[d - 1], right[d])
@@ -780,11 +889,12 @@ def make_fused_vi(
                 M = M * row_mask[:, None] * col_mask[None, :]
                 cap_k = torch.clamp(rr[k + 1] * n, max=bond_cap[k])
                 qe, r_need, r_new = _orth_basis_and_rank(
-                    M, noise_r2l[k], eps_rank, kick, cap_k, row_mask, rrf[k], frozen,
-                    sync_free)
-                rows, G = fit_core(qe, rows_r[k], r_new, rrf[k], in_warmup, frozen)
+                    M, noise_r2l[k], eps_rank, kick, torch.clamp(cap_k, max=fit_cap), row_mask,
+                    rrf[k], frozen, sync_free)
+                rows, G, bond_new, fit_new = fit_core(qe, rows_r[k], r_new, rrf[k], cap_k, rr[k],
+                                                      in_warmup, frozen)
                 rows_r[k] = rows
-                rrf[k] = r_new
+                rrf[k] = fit_new
                 # core k: [c, i, b] = G[(i, b), c]
                 new_cores[k] = G.reshape(n, R, R).permute(2, 0, 1).contiguous()
                 i, b = rows // R, rows % R
@@ -792,8 +902,8 @@ def make_fused_vi(
                 newright[:, k + 1:] = right[k + 1][b][:, k + 1:]
                 newright[:, k] = i
                 right[k] = newright
-                rr[k] = r_new
-                new_ranks[k] = r_new
+                rr[k] = bond_new
+                new_ranks[k] = bond_new
         # first core: direct evaluation against new right sets
         n = shape[0]
         vals = _eval_fibers(r2l_cores, r2l_ranks, 0, left[0], right[1])
@@ -1201,8 +1311,11 @@ def fused_tt_vi(
     continues. Steps are small and additive: caps far beyond the problem's
     epsilon-rank fit f32 noise columns and churn as badly as starved ones.
 
-    Not ported yet: ``mesh=``, ``base=``, ``oversample > 0``,
-    ``checkpoint_path`` / ``resume_from``.
+    ``base`` and ``oversample`` as in ``make_fused_vi``; with a base the
+    returned ``v`` is the correction w alone, and the validation probe
+    scores base + w.
+
+    Not ported yet: ``mesh=``, ``checkpoint_path`` / ``resume_from``.
     """
     if checkpoint_path is not None or resume_from is not None:
         _not_ported("checkpoint_path / resume_from", "utils/checkpoint.py")
@@ -1389,7 +1502,11 @@ def fused_tt_vi(
         @torch.no_grad()
         def _vcost(cores, ranks):
             vtt = TT(cores, ranks)
-            pol = _mip(problem, grid, lambda p: tt_lerp_eval(vtt, grid, p), uc)
+            if base is None:
+                vfn = lambda p: tt_lerp_eval(vtt, grid, p)  # noqa: E731
+            else:
+                vfn = lambda p: tt_lerp_eval(vtt, grid, p) + tt_lerp_eval(base, grid, p)  # noqa: E731
+            pol = _mip(problem, grid, vfn, uc)
             tr = _roll(problem, grid, pol, vx0, probe_dt, 2 * probe_steps, noise=vnoise,
                        policy_every=2)
             return float(tr.cost.mean())
@@ -1419,6 +1536,83 @@ def fused_tt_vi(
     )
 
 
-def fused_tt_vi_refined(*args, **kwargs):
-    """Residual-corrected fused VI (iterative refinement over ``base=``)."""
-    _not_ported("fused_tt_vi_refined", "base= in make_fused_vi (the accuracy stack)")
+def fused_tt_vi_refined(
+    problem: ControlProblem,
+    grid: Grid,
+    controls=None,
+    n_controls: int = 9,
+    rounds: int = 2,
+    rmax: int = 16,
+    total_round_tol: float = 1e-6,
+    seed: int | Sequence[int] = 0,
+    **kw,
+) -> FusedVISolution:
+    """Residual-corrected fused VI: iterative refinement over the cross
+    projector's error floor.
+
+    A projected solve's fixed point carries the cross fit error amplified by
+    about 1/(1 - gamma_eff). The fit error is relative to the fitted
+    function's own scale, so solving the residual equation
+
+        w_i = T(vbar_i + w_i) - vbar_i,   vbar_{i+1} = vbar_i + w_i
+
+    with the same solver (``base=vbar_i``) contracts the total error by the
+    same factor every round. A round is accepted only if the sampled Bellman
+    residual of the total, UNNORMALISED (``bres * scale``: a correction that
+    inflates max|v| would deflate its relative residual), falls; a rejected
+    round costs one retry, at most ``2 * rounds`` attempts. The total is
+    summed exactly (block-diagonal ``tt_add`` at a padding that fits both,
+    ``on_overflow='raise'``) and compressed by one final ``tt_round`` to
+    ``total_round_tol``.
+
+    ``rounds``: correction rounds to accept after the base solve. ``seed``:
+    an int draws the seed of every sub-solve (the base, then each attempt)
+    from ``np.random.default_rng(seed)``; a sequence gives them in that
+    order and needs ``1 + 2 * rounds`` entries. ``kw`` goes to every
+    ``fused_tt_vi`` call (tol, max_iters, patience, device, cuda_graph,
+    probe_rollouts, ...). The result's ``refine_history`` holds one record a
+    solve: round, residual, bellman_res, bellman_res_abs, accepted (not for
+    round 0), probe_cost, wall_s.
+    """
+    if controls is None:
+        controls = problem.control_candidates(n_controls)
+    next_seed = seed_stream(seed, 1 + 2 * rounds)
+    sol = fused_tt_vi(problem, grid, controls=controls, rmax=rmax, seed=next_seed(), **kw)
+    total = sol.v
+    iters, walls = sol.iterations, sol.wall_time
+    bres, bscale = bellman_residual_sample(problem, grid, controls, total)
+    bres_abs = float(bres) * float(bscale)
+    history = [dict(round=0, residual=sol.residual, bellman_res=float(bres),
+                    bellman_res_abs=bres_abs, probe_cost=sol.probe_cost, wall_s=sol.wall_time)]
+    acc_residual, acc_probe = sol.residual, sol.probe_cost
+    accepted_rounds, attempts = 0, 0
+    while accepted_rounds < rounds and attempts < 2 * rounds:
+        attempts += 1
+        sol_w = fused_tt_vi(problem, grid, controls=controls, rmax=rmax, seed=next_seed(),
+                            base=total, **kw)
+        Rt = total.rmax + sol_w.v.rmax
+        cand = tt_add(_repad(total, Rt), _repad(sol_w.v, Rt), on_overflow="raise")
+        iters += sol_w.iterations
+        walls += sol_w.wall_time
+        # accept on the measured sampled Bellman residual, the oracle-free
+        # bound ||v - v*|| <= ||Tv - v|| / (1 - gamma): a correction solve
+        # that churned above its fixed point's scale must never poison the
+        # result
+        bres_c, cscale = bellman_residual_sample(problem, grid, controls, cand)
+        bres_c_abs = float(bres_c) * float(cscale)
+        accepted = bres_c_abs < bres_abs
+        history.append(dict(round=accepted_rounds + 1, residual=sol_w.residual,
+                            bellman_res=float(bres_c), bellman_res_abs=bres_c_abs,
+                            accepted=accepted, probe_cost=sol_w.probe_cost,
+                            wall_s=sol_w.wall_time))
+        if accepted:
+            accepted_rounds += 1
+            total, bres_abs = cand, bres_c_abs
+            # the solution's metrics describe the ACCEPTED state
+            acc_residual, acc_probe = sol_w.residual, sol_w.probe_cost
+    # one compression pass: the exact sum usually carries redundant rank
+    total = tt_round(total, total_round_tol)
+    out = FusedVISolution(v=total, residual=acc_residual, iterations=iters, wall_time=walls,
+                          carry=sol.carry, controls=sol.controls, probe_cost=acc_probe)
+    out.refine_history = history
+    return out

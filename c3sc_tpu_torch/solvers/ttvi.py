@@ -11,21 +11,34 @@ gradient with respect to u comes from ``torch.autograd``. Terminal nodes
 are pinned both where the backup is evaluated and at the neighbours it
 reads. ``make_bellman_kernel`` evaluates the backup at any number of nodes
 in chunks; a ``node_value_fn`` replaces the TT's neighbour values (the
-two-level composite of ``solvers/local_patch.py``). ``tt_vi`` is not ported
-yet.
+two-level composite of ``solvers/local_patch.py``).
+
+``tt_vi`` is the value iteration whose loop runs on the host (the
+reference's ``c3control_vi_solve``): every iteration cross-approximates the
+backed-up value with ``ops.cross.tt_cross`` (or ``solvers.dmrg.dmrg_cross``),
+warm-started from the previous iteration's index sets. The backups run on
+the device; the rank choices and index sets live on the host, so an
+iteration reads the device on the host several times a core, by design.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from functools import partial
+from typing import Callable, Sequence
+
 import numpy as np
 import torch
 
-from c3sc_tpu_torch.device import const_tensor
+from c3sc_tpu_torch.device import const_tensor, resolve_device
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
 from c3sc_tpu_torch.ops.argmin import first_argmin, lbfgs_minimize, pgd_minimize
-from c3sc_tpu_torch.ops.tt import TT, tt_gather_eval
+from c3sc_tpu_torch.ops.cross import CrossState, tt_cross
+from c3sc_tpu_torch.ops.tt import TT, tt_gather_eval, tt_round, tt_zeros
+from c3sc_tpu_torch.seeds import seed_stream
 
 REFINE_METHODS = ("pgd", "lbfgs")
 
@@ -159,3 +172,124 @@ def make_bellman_kernel(problem: ControlProblem, grid: Grid, controls, chunk: in
         return torch.cat(pieces) if len(pieces) > 1 else pieces[0]
 
     return bellman
+
+
+@dataclasses.dataclass
+class TTVISolution:
+    v: TT
+    state: CrossState
+    residual: float
+    iterations: int
+    residual_history: list
+    ranks: list
+    n_evals: int
+    wall_time: float
+    controls: np.ndarray
+
+
+def tt_vi(
+    problem: ControlProblem,
+    grid: Grid,
+    controls=None,
+    n_controls: int = 9,
+    rmax: int = 20,
+    seed: int | Sequence = 0,
+    tol: float = 1e-4,
+    max_iters: int = 500,
+    cross_tol: float = 1e-4,
+    cross_sweeps_first: int = 5,
+    cross_sweeps: int = 2,
+    r0: int = 3,
+    kick: int = 2,
+    eps_rank: float = 1e-5,
+    round_tol: float | None = None,
+    chunk: int = 4096,
+    sample_size: int = 512,
+    dtype=torch.float32,
+    v0: TT | None = None,
+    state: CrossState | None = None,
+    verbose: bool = False,
+    callback: Callable | None = None,
+    metrics=None,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 50,
+    resume_from: str | None = None,
+    cross_method: str = "cross",
+    refine_steps: int = 0,
+    refine_method: str = "pgd",
+    device=None,
+) -> TTVISolution:
+    """Solve the MCA Bellman fixed point with a TT-compressed value, on
+    ``device`` (None: the default CUDA device; ``v0`` and ``state`` warm-
+    start it).
+
+    ``cross_method``: 'cross' (single-site, kick rank) or 'dmrg' (two-site
+    SVD rank revelation). ``refine_steps``: the continuous polish of each
+    node's control inside the backup (0: brute force only). ``seed``: an int
+    draws each iteration's cross seed from ``np.random.default_rng(seed)``;
+    a sequence gives them in order (an item is what the cross function's
+    ``seed`` takes: an int, or ``tt_cross``'s pair). ``metrics`` (an object
+    with ``.log(name, **fields)``) gets a ``vi_iter`` record an iteration,
+    ``callback(it, v, residual)`` is called after each.
+
+    Not ported yet: ``checkpoint_path`` / ``resume_from`` (they wait for
+    utils/checkpoint.py).
+    """
+    if checkpoint_path is not None or resume_from is not None:
+        raise NotImplementedError("checkpoint_path / resume_from is not ported yet: it waits "
+                                  "for utils/checkpoint.py")
+    if cross_method not in ("cross", "dmrg"):
+        raise ValueError(f"cross_method must be 'cross' or 'dmrg', got {cross_method!r}")
+    device = resolve_device(device)
+    if controls is None:
+        controls = problem.control_candidates(n_controls)
+    bellman = make_bellman_kernel(problem, grid, controls, chunk, dtype,
+                                  refine_steps=refine_steps, refine_method=refine_method)
+    rng = np.random.default_rng(777)
+    sample_idx = np.stack([rng.integers(0, n, size=sample_size) for n in grid.shape], axis=-1)
+    sample_t = torch.as_tensor(sample_idx, dtype=torch.int64, device=device)
+    next_seed = seed_stream(seed, max_iters)
+    if cross_method == "dmrg":
+        from c3sc_tpu_torch.solvers.dmrg import dmrg_cross
+
+    v = v0 if v0 is not None else tt_zeros(grid.shape, rmax, dtype, device)
+    v_sample = tt_gather_eval(v, sample_t)
+    history, ranks_hist = [], []
+    n_evals = 0
+    t0 = time.time()
+    residual = float("inf")
+    it = 0
+    for it in range(max_iters):
+        f = partial(bellman, v)
+        n_sw = cross_sweeps_first if state is None else cross_sweeps
+        if cross_method == "dmrg":
+            res = dmrg_cross(f, grid.shape, rmax=rmax, seed=next_seed(), state=state, r0=r0,
+                             tol=cross_tol, eps_rank=eps_rank, max_sweeps=n_sw,
+                             sample_idx=sample_idx, dtype=dtype, device=device)
+        else:
+            res = tt_cross(f, grid.shape, rmax=rmax, seed=next_seed(), state=state, r0=r0,
+                           kick=kick, tol=cross_tol, eps_rank=eps_rank, max_sweeps=n_sw,
+                           sample_idx=sample_idx, dtype=dtype, device=device)
+        v_new, state = res.tt, res.state
+        if round_tol is not None:
+            v_new = tt_round(v_new, round_tol, rmax)
+        n_evals += res.n_evals
+        new_sample = tt_gather_eval(v_new, sample_t)
+        scale = float(torch.max(torch.abs(new_sample))) + 1e-12
+        residual = float(torch.max(torch.abs(new_sample - v_sample))) / scale
+        history.append(residual)
+        ranks_hist.append([int(r) for r in v_new.ranks.tolist()])
+        v, v_sample = v_new, new_sample
+        if verbose and (it % 10 == 0 or residual < tol):
+            print(f"[tt_vi:{problem.name}] it={it} res={residual:.3e} ranks={ranks_hist[-1]} "
+                  f"evals={n_evals}")
+        if metrics is not None:
+            metrics.log("vi_iter", iter=it, residual=residual, ranks=ranks_hist[-1],
+                        evals=n_evals)
+        if callback is not None:
+            callback(it, v, residual)
+        if residual < tol:
+            break
+    return TTVISolution(v=v, state=state, residual=residual, iterations=it + 1,
+                        residual_history=history, ranks=ranks_hist, n_evals=n_evals,
+                        wall_time=time.time() - t0, controls=np.asarray(controls))

@@ -396,8 +396,6 @@ def test_probe_harvest_runs_and_validates():
 
 
 @pytest.mark.parametrize("kw,waits_for", [
-    (dict(oversample=0.5), "rectangular-maxvol"),
-    (dict(base=TT((), torch.ones(1))), "fused_tt_vi_refined"),
     (dict(mesh=object()), "multi-GPU"),
     (dict(checkpoint_path="x.npz"), "checkpoint"),
     (dict(resume_from="x.npz"), "checkpoint"),
@@ -410,13 +408,15 @@ def test_options_not_ported_raise(kw, waits_for):
 
 
 def test_functions_not_ported_raise():
+    """``_cholqr2`` still waits for an option that selects it; the
+    rectangular-maxvol helpers and ``fused_tt_vi_refined`` are ported (their
+    tests: tests/test_torch_fused_refined.py) and no longer raise."""
     q = torch.zeros(4, 2)
-    for call in (lambda: tf.fused_tt_vi_refined(None, None),
-                 lambda: tf._cholqr2(q),
-                 lambda: tf._interp_from_rows_ls(q, None, 1, 2),
-                 lambda: tf._extend_rows(q, None, 1, 2)):
-        with pytest.raises(NotImplementedError, match="waits for"):
-            call()
+    with pytest.raises(NotImplementedError, match="waits for"):
+        tf._cholqr2(q)
+    rows = tf._extend_rows(q, torch.tensor([0, 1]), torch.tensor(1), torch.tensor(2))
+    assert rows.tolist() == [0, 1]
+    assert tf._interp_from_rows_ls(q, rows, torch.tensor(1), torch.tensor(2)).shape == (4, 2)
     prob = tm.make_problem("lq")
     with pytest.raises(ValueError):   # a CUDA graph needs a CUDA device
         make_fused_vi(prob, prob.default_grid(11), prob.control_candidates(3), rmax=4,

@@ -143,7 +143,10 @@ def test_grid_queries_match_jax(jg):
 
 def test_import_leaves_jax_out():
     code = ("import sys, c3sc_tpu_torch, c3sc_tpu_torch.convert, c3sc_tpu_torch.solvers, "
-            "c3sc_tpu_torch.sim, c3sc_tpu_torch.ops.interp, c3sc_tpu_torch.ops.dense_backup; "
+            "c3sc_tpu_torch.sim, c3sc_tpu_torch.ops.interp, c3sc_tpu_torch.ops.dense_backup, "
+            "c3sc_tpu_torch.ops.cross, c3sc_tpu_torch.solvers.multilevel, "
+            "c3sc_tpu_torch.solvers.pials, c3sc_tpu_torch.solvers.dmrg, "
+            "c3sc_tpu_torch.solvers.ttpi, c3sc_tpu_torch.sim.mpc; "
             "import torch; assert torch.backends.cuda.matmul.allow_tf32 is False; "
             "assert torch.backends.cudnn.allow_tf32 is False; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'c3sc_tpu')]; "
