@@ -9,19 +9,26 @@ in float32. Entry points run on the CUDA device (``default_device()``)
 unless the caller passes ``device="cpu"``; functions that take tensors
 follow their inputs.
 
-Ported so far (the dense Bellman path, the fused TT value iteration, the
-receding-horizon control path, the flagship accuracy stack and the
-reference solvers whose loop runs on the host):
+Ported (every module of the JAX package but ``parallel/``, and the JAX
+package's persistent compile cache, which has no counterpart):
   grids.py            tensor-product grids (uniform and non-uniform)
-  models/             ControlProblem + quadcopter, pendulum, LQ
+  models/             ControlProblem + the six systems (LQ, pendulum, Dubins, glider,
+                      the 6D and 7D quadcopters)
   ops/mca.py          Kushner–Dupuis stencil
-  ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cu)
+  ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cu,
+                      uniform and non-uniform grids)
   ops/interp.py       multilinear interpolation
-  ops/tt.py           padded tensor trains: evaluation, add, round, refine, save/load
+  ops/tt.py           padded tensor trains: evaluation, add, mult, dot, integrate,
+                      round, refine, save/load
   ops/cross.py        TT cross with maxvol (tt_cross) and its index sets (CrossState)
+  ops/argmin.py       batched continuous inner minimisation (PGD, L-BFGS)
+  ops/quadrature.py   Gauss and Clenshaw–Curtis rules
+  ops/funcs.py        univariate function classes (C3 lib_funcs) and GenericFunction
+  ops/qmarray.py      quasimatrices: QR, LU, maxvol
+  ops/ft.py           function trains with polynomial cores (PolyFT)
   solvers/dense.py    dense_vi (modified policy iteration), dense_policy
-  solvers/fused.py    make_fused_vi, fused_tt_vi, fused_tt_vi_refined (square and
-                      rectangular-maxvol schemes, residual solves; plain PyTorch)
+  solvers/fused.py    make_fused_vi, fused_tt_vi (checkpoint and resume),
+                      fused_tt_vi_refined
   solvers/multilevel.py  coarse-to-fine warm starts of the fused solver
   solvers/ttvi.py     the TT Bellman backup, its chunked kernel, tt_vi
   solvers/dmrg.py     two-site DMRG cross
@@ -33,6 +40,10 @@ reference solvers whose loop runs on the host):
   solvers/local_patch.py  the local dense patch (kernel K1) and the two-level composite
   sim/                implicit policy, batched rollouts, MPC on tt_vi, fused MPC,
                       tracking, iLQR and receding-horizon MPC
+  utils/              checkpoints (the JAX package's files), metrics, NaN checks
+  native.py           the native maxvol and the .c3tt serializer (native/)
+  control.py          the C3Control builder (c3control_* methods)
+  cli.py              the registry CLI (python -m c3sc_tpu_torch.cli), examples/
   convert.py          numpy carriers of state from the JAX package
   device.py           the default device of every ``device=None``; constants kept on it
   seeds.py            the seeds of sub-solves (an int, or one seed a sub-solve)

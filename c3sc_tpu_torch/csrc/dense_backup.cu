@@ -21,6 +21,10 @@
 //   best = argmin_c rhs.
 // Neighbours wrap on periodic dims and clamp on bounded ones. `evaluate`
 // computes the same rhs for the one candidate best[n] and pins terminals.
+// On a non-uniform grid h_j is h+_j up and h-_j down (the node's own gaps):
+//     Q    = sum_j (s2_j/(h+_j h-_j) + max(f_j,0)/h+_j + max(-f_j,0)/h-_j) + 1e-10,
+//     p+_j = (s2_j/(h+_j (h+_j + h-_j)) + max(f_j,0)/h+_j)/Q, p-_j likewise,
+// the stencil of c3sc_tpu/ops/mca.py::_stencil_nonuniform.
 //
 // The arithmetic, factored so that a candidate costs no division but one.
 // With a_j = s2_j/(2 h_j^2) and ih_j = 1/h_j (ih_j and 1/(2 h_j^2) are
@@ -77,6 +81,21 @@
 // is now four fifths of dense_vi's device time: the next lever is there
 // (several evaluate sweeps a launch), not in this arithmetic. 64 and 32
 // registers a thread, no spills.
+//
+// Non-uniform grids. On a tensor-product grid h+-_j depend on the node's
+// coordinate i_j alone, which the index decode yields anyway, so each dim
+// has a table indexed by i_j of the five reciprocals the stencil uses,
+// worked out on the host in float64 and rounded to float32: 1/h+, 1/h-,
+// 1/(h+ h-), 1/(h+ (h+ + h-)), 1/(h- (h+ + h-)) (Spacing, below; sum_k n_k
+// entries of 32 bytes, read through the read-only cache). The node-only
+// terms become Q0 = sum_j s2_j/(h+ h-) + 1e-10 and A0 = sum_j s2_j (v+_j/(h+
+// (h+ + h-)) + v-_j/(h- (h+ + h-))), and a candidate scales its drift f_j
+// by 1/h+_j or 1/h-_j once its sign is known, so the node keeps f0 and G
+// unscaled plus the two reciprocals a dim (2 d registers more than the
+// uniform form, not four scaled copies of f0 and G). The sweep stays free
+// of divisions. Which form a kernel computes is a template argument
+// (kUniform, kNonuniform): the uniform instantiations compile to the code
+// they compiled to before.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,6 +109,11 @@ constexpr int kMaxD = 8;
 constexpr int kMaxDU = 4;
 constexpr int kBlock = 256;
 constexpr int kCandTile = 512;  // candidates staged in shared memory at a time
+constexpr int kSpacingStride = 8;  // floats a Spacing table entry takes (5 used)
+
+// The stencil's form, a template argument of every kernel.
+constexpr int kUniform = 0;
+constexpr int kNonuniform = 1;
 
 // One grid, with the per-launch constants of the stencil. Idx is uint32_t
 // when N < 2^31 and long long above.
@@ -102,7 +126,33 @@ struct GridDesc {
   int shift[kMaxD];
   float ih[kMaxD];         // 1 / h
   float a_scale[kMaxD];    // 1 / (2 h^2)
+  const float* nu;         // non-uniform: the Spacing tables, entry (toff[j] + i_j); else null
+  int toff[kMaxD];         // first table entry of each dim
 };
+
+// The reciprocal spacings of one node, dim by dim (non-uniform grids).
+template <int D>
+struct Spacing {
+  float ihp[D];  // 1 / h+
+  float ihm[D];  // 1 / h-
+  float cpm[D];  // 1 / (h+ h-)
+  float cp[D];   // 1 / (h+ (h+ + h-))
+  float cm[D];   // 1 / (h- (h+ + h-))
+};
+
+template <int D, typename Idx>
+C3SC_FN void load_spacing(const GridDesc<Idx>& g, const Idx (&coord)[D], Spacing<D>& sp) {
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float* e = g.nu + (long long)(g.toff[j] + (int)coord[j]) * kSpacingStride;
+    const float4 a = __ldg(reinterpret_cast<const float4*>(e));
+    sp.ihp[j] = a.x;
+    sp.ihm[j] = a.y;
+    sp.cpm[j] = a.z;
+    sp.cp[j] = a.w;
+    sp.cm[j] = __ldg(e + 4);
+  }
+}
 
 // The x-only and candidate tensors of one problem on one grid.
 struct Operands {
@@ -130,9 +180,11 @@ C3SC_FN long long quotient(long long rem, const GridDesc<long long>& g, int j) {
 }
 
 // +-1 neighbours of flat node n along every dim: wrap on periodic dims,
-// clamp on bounded ones (the node itself at the face).
+// clamp on bounded ones (the node itself at the face); coord gets the node's
+// multi-index.
 template <int D, typename Idx>
-C3SC_FN void neighbour_offsets(Idx n, const GridDesc<Idx>& g, Idx (&up)[D], Idx (&dn)[D]) {
+C3SC_FN void neighbour_offsets(Idx n, const GridDesc<Idx>& g, Idx (&up)[D], Idx (&dn)[D],
+                               Idx (&coord)[D]) {
   Idx rem = n;
 #pragma unroll
   for (int j = D - 1; j >= 0; --j) {
@@ -146,14 +198,17 @@ C3SC_FN void neighbour_offsets(Idx n, const GridDesc<Idx>& g, Idx (&up)[D], Idx 
     }
     up[j] = (i + 1 < len) ? n + s : n - g.wrap[j];
     dn[j] = (i > 0) ? n - s : n + g.wrap[j];
+    coord[j] = i;
   }
 }
 
 // Node-local, candidate-independent part of the factored stencil.
 template <int D, int DU>
 struct NodeTerms {
-  float f0h[D];     // f0 / h
-  float Gh[D][DU];  // G / h
+  float f0h[D];     // f0 / h (non-uniform: f0)
+  float Gh[D][DU];  // G / h (non-uniform: G)
+  float ihp[D];     // non-uniform: 1 / h+
+  float ihm[D];     // non-uniform: 1 / h-
   float vp[D];      // v at the +1 neighbours
   float vm[D];      // v at the -1 neighbours
   float Q0;         // sum_j s2_j / h_j^2 + 1e-10
@@ -162,16 +217,23 @@ struct NodeTerms {
 };
 
 // The diffusion part of the factored stencil from the node's variances s2[d]:
-// Q0 = sum_j 2 a_j + 1e-10 and A0 = sum_j a_j (v+_j + v-_j).
+// Q0 = sum_j 2 a_j + 1e-10 and A0 = sum_j a_j (v+_j + v-_j); non-uniform,
+// Q0 = sum_j s2_j cpm_j + 1e-10 and A0 = sum_j s2_j (cp_j v+_j + cm_j v-_j).
 template <int D, typename Idx>
-C3SC_FN void diffusion_terms(const float (&s2)[D], const GridDesc<Idx>& g, const float (&vp)[D],
-                             const float (&vm)[D], float& Q0, float& A0) {
+C3SC_FN void diffusion_terms(const float (&s2)[D], const GridDesc<Idx>& g, bool nu,
+                             const Spacing<D>& sp, const float (&vp)[D], const float (&vm)[D],
+                             float& Q0, float& A0) {
   float q0 = 0.0f, a0 = 0.0f;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    const float a = __fmul_rn(s2[j], g.a_scale[j]);
-    q0 = fmaf(2.0f, a, q0);
-    a0 = fmaf(a, __fadd_rn(vp[j], vm[j]), a0);
+    if (nu) {
+      q0 = fmaf(s2[j], sp.cpm[j], q0);
+      a0 = fmaf(s2[j], fmaf(sp.cp[j], vp[j], __fmul_rn(sp.cm[j], vm[j])), a0);
+    } else {
+      const float a = __fmul_rn(s2[j], g.a_scale[j]);
+      q0 = fmaf(2.0f, a, q0);
+      a0 = fmaf(a, __fadd_rn(vp[j], vm[j]), a0);
+    }
   }
   Q0 = __fadd_rn(q0, 1e-10f);
   A0 = a0;
@@ -185,26 +247,35 @@ C3SC_FN void load_planes(const float* x, Idx at, Idx stride, float (&out)[D]) {
   for (int j = 0; j < D; ++j) out[j] = x[at + (Idx)j * stride];
 }
 
-// Fills the rest of t from the node's operands and from t.vp, t.vm.
+// Fills the rest of t from the node's operands, from t.vp, t.vm and, on a
+// non-uniform grid, from the node's spacings sp.
 template <int D, int DU, typename Idx>
-C3SC_FN void load_node(Idx n, long long N, const Operands& op, const GridDesc<Idx>& g,
-                       NodeTerms<D, DU>& t) {
+C3SC_FN void load_node(Idx n, long long N, const Operands& op, const GridDesc<Idx>& g, bool nu,
+                       const Spacing<D>& sp, NodeTerms<D, DU>& t) {
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    const float ih = g.ih[j];
-    t.f0h[j] = __fmul_rn(op.f0[j * N + n], ih);
+    if (nu) {  // scaled per candidate, once the sign of its drift is known
+      t.f0h[j] = op.f0[j * N + n];
 #pragma unroll
-    for (int m = 0; m < DU; ++m) t.Gh[j][m] = __fmul_rn(op.G[(j * DU + m) * N + n], ih);
+      for (int m = 0; m < DU; ++m) t.Gh[j][m] = op.G[(j * DU + m) * N + n];
+      t.ihp[j] = sp.ihp[j];
+      t.ihm[j] = sp.ihm[j];
+    } else {
+      const float ih = g.ih[j];
+      t.f0h[j] = __fmul_rn(op.f0[j * N + n], ih);
+#pragma unroll
+      for (int m = 0; m < DU; ++m) t.Gh[j][m] = __fmul_rn(op.G[(j * DU + m) * N + n], ih);
+    }
   }
   float s2[D];
   load_planes<D, Idx>(op.s2, n, (Idx)N, s2);
-  diffusion_terms<D, Idx>(s2, g, t.vp, t.vm, t.Q0, t.A0);
+  diffusion_terms<D, Idx>(s2, g, nu, sp, t.vp, t.vm, t.Q0, t.A0);
   t.q = op.q[n];
 }
 
 // Bellman right-hand side of the candidate (u, r) at one node, factored form.
 template <int D, int DU>
-C3SC_FN float candidate_rhs(const NodeTerms<D, DU>& t, const float (&u)[DU], float r,
+C3SC_FN float candidate_rhs(const NodeTerms<D, DU>& t, bool nu, const float (&u)[DU], float r,
                             float beta) {
   float Q = t.Q0;
   float S = 0.0f;
@@ -213,6 +284,7 @@ C3SC_FN float candidate_rhs(const NodeTerms<D, DU>& t, const float (&u)[DU], flo
     float fh = t.f0h[j];
 #pragma unroll
     for (int m = 0; m < DU; ++m) fh = fmaf(t.Gh[j][m], u[m], fh);
+    if (nu) fh = __fmul_rn(fh, fh > 0.0f ? t.ihp[j] : t.ihm[j]);
     const float af = fabsf(fh);
     Q = __fadd_rn(Q, af);
     S = fmaf(af, fh > 0.0f ? t.vp[j] : t.vm[j], S);
@@ -244,13 +316,14 @@ C3SC_FN void read_candidate(const float4* cand, int c, float (&u)[DU], float& r)
   r = w[DU];
 }
 
-// v at the +-1 neighbours of node n, as the sweep reads it.
+// v at the +-1 neighbours of node n, as the sweep reads it, and the node's
+// multi-index.
 template <int D, typename Idx>
 C3SC_FN void neighbour_values(Idx n, const float* v, const uint8_t* t_mask, const float* t_val,
                               const GridDesc<Idx>& g, int clip, float lo, float hi, int pin,
-                              float (&vp)[D], float (&vm)[D]) {
+                              float (&vp)[D], float (&vm)[D], Idx (&coord)[D]) {
   Idx up[D], dn[D];
-  neighbour_offsets<D, Idx>(n, g, up, dn);
+  neighbour_offsets<D, Idx>(n, g, up, dn, coord);
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     vp[j] = v[up[j]];
@@ -267,7 +340,7 @@ C3SC_FN void neighbour_values(Idx n, const float* v, const uint8_t* t_mask, cons
 }
 
 // The improve sweep: one thread a node, the block's candidates in shared memory.
-template <int D, int DU, typename Idx>
+template <int D, int DU, int NU, typename Idx>
 __global__ void __launch_bounds__(kBlock)
 dense_backup_kernel(const float* __restrict__ v, Operands op, GridDesc<Idx> g, long long N,
                     int clip, float lo, float hi, int pin, float* __restrict__ vnew,
@@ -277,10 +350,14 @@ dense_backup_kernel(const float* __restrict__ v, Operands op, GridDesc<Idx> g, l
   float* cand = reinterpret_cast<float*>(cand4);
   const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
   const bool active = n < (Idx)N;
+  constexpr bool nu = NU == kNonuniform;
   NodeTerms<D, DU> t;
   if (active) {
-    neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, t.vp, t.vm);
-    load_node<D, DU, Idx>(n, N, op, g, t);
+    Idx coord[D];
+    Spacing<D> sp;
+    neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, t.vp, t.vm, coord);
+    if (nu) load_spacing<D, Idx>(g, coord, sp);
+    load_node<D, DU, Idx>(n, N, op, g, nu, sp, t);
   }
   float best_v = 3.4e38f;
   int best_c = 0;
@@ -298,7 +375,7 @@ dense_backup_kernel(const float* __restrict__ v, Operands op, GridDesc<Idx> g, l
       for (int c = 0; c < cn; ++c) {
         float u[DU], r;
         read_candidate<DU>(cand4, c, u, r);
-        const float rhs = candidate_rhs<D, DU>(t, u, r, op.beta);
+        const float rhs = candidate_rhs<D, DU>(t, nu, u, r, op.beta);
         if (rhs < best_v) {
           best_v = rhs;
           best_c = c0 + c;
@@ -314,7 +391,7 @@ dense_backup_kernel(const float* __restrict__ v, Operands op, GridDesc<Idx> g, l
 }
 
 // The fixed-policy evaluate sweep: the rhs of candidate best[n] alone.
-template <int D, int DU, typename Idx>
+template <int D, int DU, int NU, typename Idx>
 __global__ void __launch_bounds__(kBlock)
 dense_evaluate_kernel(const float* __restrict__ v, const int32_t* __restrict__ best, Operands op,
                       GridDesc<Idx> g, long long N, float* __restrict__ vnew) {
@@ -329,13 +406,17 @@ dense_evaluate_kernel(const float* __restrict__ v, const int32_t* __restrict__ b
     vnew[n] = nanf("");
     return;
   }
+  constexpr bool nu = NU == kNonuniform;
   NodeTerms<D, DU> t;
-  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, t.vp, t.vm);
-  load_node<D, DU, Idx>(n, N, op, g, t);
+  Idx coord[D];
+  Spacing<D> sp;
+  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, t.vp, t.vm, coord);
+  if (nu) load_spacing<D, Idx>(g, coord, sp);
+  load_node<D, DU, Idx>(n, N, op, g, nu, sp, t);
   float u[DU];
 #pragma unroll
   for (int m = 0; m < DU; ++m) u[m] = op.uc[c * DU + m];
-  vnew[n] = candidate_rhs<D, DU>(t, u, op.r[c], op.beta);
+  vnew[n] = candidate_rhs<D, DU>(t, nu, u, op.r[c], op.beta);
 }
 
 // ---- the general entries: any problem, from per-candidate operands ------------------
@@ -398,15 +479,17 @@ struct PolicyOperands {
 };
 
 // Bellman right-hand side of one candidate at one node from its drift f and
-// its cost gcost; Q0 and A0 are the diffusion terms of its variances.
+// its cost gcost; Q0 and A0 are the diffusion terms of its variances. On a
+// non-uniform grid f_j is scaled by 1/h+_j where positive, 1/h-_j where not.
 template <int D, typename Idx>
-C3SC_FN float general_rhs(const float (&f)[D], const GridDesc<Idx>& g, const float (&vp)[D],
-                          const float (&vm)[D], float Q0, float A0, float gcost, float beta) {
+C3SC_FN float general_rhs(const float (&f)[D], const GridDesc<Idx>& g, bool nu,
+                          const Spacing<D>& sp, const float (&vp)[D], const float (&vm)[D],
+                          float Q0, float A0, float gcost, float beta) {
   float Q = Q0;
   float S = 0.0f;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    const float fh = __fmul_rn(f[j], g.ih[j]);
+    const float fh = __fmul_rn(f[j], nu ? (f[j] > 0.0f ? sp.ihp[j] : sp.ihm[j]) : g.ih[j]);
     const float af = fabsf(fh);
     Q = __fadd_rn(Q, af);
     S = fmaf(af, fh > 0.0f ? vp[j] : vm[j], S);
@@ -420,19 +503,23 @@ C3SC_FN float general_rhs(const float (&f)[D], const GridDesc<Idx>& g, const flo
 // running min over the candidates (first index on ties); the winner's
 // operands go to `pol` where its pointers are not null (a bad or NaN rhs
 // everywhere leaves candidate 0, whose operands are then written).
-template <int D, typename Idx>
+template <int D, int NU, typename Idx>
 __global__ void __launch_bounds__(kBlock)
 dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, PolicyOperands pol,
                             GridDesc<Idx> g, long long N, int clip, float lo, float hi, int pin,
                             float* __restrict__ vnew, int32_t* __restrict__ best) {
   const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
   if (n >= (Idx)N) return;
+  constexpr bool nu = NU == kNonuniform;
   float vp[D], vm[D], s[D];
-  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, vp, vm);
+  Idx coord[D];
+  Spacing<D> sp;
+  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, vp, vm, coord);
+  if (nu) load_spacing<D, Idx>(g, coord, sp);
   float Q0n = 0.0f, A0n = 0.0f, q = 0.0f;
   if (op.s2 != nullptr) {
     load_planes<D, Idx>(op.s2, n, (Idx)N, s);
-    diffusion_terms<D, Idx>(s, g, vp, vm, Q0n, A0n);
+    diffusion_terms<D, Idx>(s, g, nu, sp, vp, vm, Q0n, A0n);
   }
   if (op.q != nullptr) q = op.q[n];
   float best_v = 3.4e38f;
@@ -444,10 +531,10 @@ dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, Pol
     float Q0 = Q0n, A0 = A0n;
     if (op.s2c != nullptr) {
       load_planes<D, Idx>(op.s2c, at, (Idx)N, s);
-      diffusion_terms<D, Idx>(s, g, vp, vm, Q0, A0);
+      diffusion_terms<D, Idx>(s, g, nu, sp, vp, vm, Q0, A0);
     }
     const float gcost = op.gc != nullptr ? op.gc[(Idx)c * (Idx)N + n] : __fadd_rn(op.r[c], q);
-    const float rhs = general_rhs<D, Idx>(f, g, vp, vm, Q0, A0, gcost, op.beta);
+    const float rhs = general_rhs<D, Idx>(f, g, nu, sp, vp, vm, Q0, A0, gcost, op.beta);
     if (rhs < best_v) {
       best_v = rhs;
       best_c = c;
@@ -473,7 +560,7 @@ dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op, Pol
 // t_val, best, and v's neighbours); r[best[n]] comes from a table of C
 // floats that stays in the L1 cache. The arithmetic is the improve's, so
 // under the improve's own policy it repeats the improve's value bit for bit.
-template <int D, typename Idx>
+template <int D, int NU, typename Idx>
 __global__ void __launch_bounds__(kBlock)
 dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __restrict__ best,
                               GeneralOperands op, PolicyOperands pol, GridDesc<Idx> g,
@@ -489,13 +576,17 @@ dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __rest
     vnew[n] = nanf("");
     return;
   }
+  constexpr bool nu = NU == kNonuniform;
   float vp[D], vm[D], s[D], f[D], Q0, A0;
-  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, vp, vm);
+  Idx coord[D];
+  Spacing<D> sp;
+  neighbour_values<D, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, vp, vm, coord);
+  if (nu) load_spacing<D, Idx>(g, coord, sp);
   load_planes<D, Idx>(pol.s2 != nullptr ? pol.s2 : op.s2, n, (Idx)N, s);
-  diffusion_terms<D, Idx>(s, g, vp, vm, Q0, A0);
+  diffusion_terms<D, Idx>(s, g, nu, sp, vp, vm, Q0, A0);
   load_planes<D, Idx>(pol.f, n, (Idx)N, f);
   const float gcost = pol.g != nullptr ? pol.g[n] : __fadd_rn(__ldg(op.r + c), op.q[n]);
-  vnew[n] = general_rhs<D, Idx>(f, g, vp, vm, Q0, A0, gcost, op.beta);
+  vnew[n] = general_rhs<D, Idx>(f, g, nu, sp, vp, vm, Q0, A0, gcost, op.beta);
 }
 
 // ---- host side ---------------------------------------------------------------------
@@ -513,7 +604,13 @@ inline void set_magic(GridDesc<long long>* g, int j, long long) {
 
 template <typename Idx>
 void make_desc(int d, const long long* shape, const float* h, const int* periodic,
-               GridDesc<Idx>* g) {
+               const float* nu, GridDesc<Idx>* g) {
+  g->nu = nu;
+  int off = 0;
+  for (int j = 0; j < d; ++j) {
+    g->toff[j] = off;
+    off += (int)shape[j];
+  }
   long long total = 1;
   for (int j = d - 1; j >= 0; --j) {
     g->shape[j] = (Idx)shape[j];
@@ -537,6 +634,7 @@ struct Call {
   const long long* shape;
   const float* h;
   const int* periodic;
+  const float* nu;  // the Spacing tables of a non-uniform grid on the device, else null
   int clip;
   float lo, hi;
   int pin;
@@ -555,27 +653,35 @@ cudaError_t preload_kernels(K1 improve, K2 evaluate) {
   return err != cudaSuccess ? err : cudaFuncGetAttributes(&attr, evaluate);
 }
 
-template <int D, int DU, typename Idx>
+template <int D, int DU, int NU, typename Idx>
 cudaError_t launch(const Call& c, long long N) {
   if (c.preload)
-    return preload_kernels(dense_backup_kernel<D, DU, Idx>, dense_evaluate_kernel<D, DU, Idx>);
+    return preload_kernels(dense_backup_kernel<D, DU, NU, Idx>,
+                           dense_evaluate_kernel<D, DU, NU, Idx>);
   GridDesc<Idx> g;
-  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, &g);
+  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, c.nu, &g);
   const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
   if (c.best_in == nullptr) {
-    dense_backup_kernel<D, DU, Idx><<<blocks, kBlock, 0, c.stream>>>(
+    dense_backup_kernel<D, DU, NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
         c.v, c.op, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
   } else {
-    dense_evaluate_kernel<D, DU, Idx><<<blocks, kBlock, 0, c.stream>>>(c.v, c.best_in, c.op, g,
-                                                                       N, c.vnew);
+    dense_evaluate_kernel<D, DU, NU, Idx><<<blocks, kBlock, 0, c.stream>>>(c.v, c.best_in, c.op,
+                                                                           g, N, c.vnew);
   }
   return cudaGetLastError();
 }
 
+// The stencil's form of one launch: non-uniform where the grid has tables.
+template <int D, int DU, typename Idx>
+cudaError_t run_form(const Call& c, long long N) {
+  if (c.nu != nullptr) return launch<D, DU, kNonuniform, Idx>(c, N);
+  return launch<D, DU, kUniform, Idx>(c, N);
+}
+
 template <int D, int DU>
 cudaError_t run(const Call& c, long long N) {
-  if (c.wide || N >= (1LL << 31)) return launch<D, DU, long long>(c, N);
-  return launch<D, DU, uint32_t>(c, N);
+  if (c.wide || N >= (1LL << 31)) return run_form<D, DU, long long>(c, N);
+  return run_form<D, DU, uint32_t>(c, N);
 }
 
 // Instantiate for every (d, du) in [1, 8] x [1, 4].
@@ -627,6 +733,7 @@ struct GeneralCall {
   const long long* shape;
   const float* h;
   const int* periodic;
+  const float* nu;
   int clip;
   float lo, hi;
   int pin;
@@ -635,29 +742,36 @@ struct GeneralCall {
   int preload;
 };
 
-template <int D, typename Idx>
+template <int D, int NU, typename Idx>
 cudaError_t launch_general(const GeneralCall& c, long long N) {
   if (c.preload)
-    return preload_kernels(dense_backup_general_kernel<D, Idx>,
-                           dense_evaluate_general_kernel<D, Idx>);
+    return preload_kernels(dense_backup_general_kernel<D, NU, Idx>,
+                           dense_evaluate_general_kernel<D, NU, Idx>);
   GridDesc<Idx> g;
-  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, &g);
+  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, c.nu, &g);
   const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
   if (c.best_in == nullptr) {
-    dense_backup_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(
+    dense_backup_general_kernel<D, NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
         c.v, c.op, c.pol, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
   } else {
-    dense_evaluate_general_kernel<D, Idx><<<blocks, kBlock, 0, c.stream>>>(
+    dense_evaluate_general_kernel<D, NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
         c.v, c.best_in, c.op, c.pol, g, N, c.vnew);
   }
   return cudaGetLastError();
 }
 
+template <int D, typename Idx>
+cudaError_t run_general_form(const GeneralCall& c, long long N) {
+  if (c.nu != nullptr) return launch_general<D, kNonuniform, Idx>(c, N);
+  return launch_general<D, kUniform, Idx>(c, N);
+}
+
 template <int D>
 cudaError_t run_general(const GeneralCall& c, long long N) {
   // the largest offset is that of the [C, d, N] operands
-  if (c.wide || (long long)c.op.C * D * N >= (1LL << 31)) return launch_general<D, long long>(c, N);
-  return launch_general<D, uint32_t>(c, N);
+  if (c.wide || (long long)c.op.C * D * N >= (1LL << 31))
+    return run_general_form<D, long long>(c, N);
+  return run_general_form<D, uint32_t>(c, N);
 }
 
 cudaError_t dispatch_general(const GeneralCall& c) {
@@ -694,15 +808,20 @@ cudaError_t dispatch_general(const GeneralCall& c) {
 extern "C" {
 
 // One improve sweep. f0, G and s2 are structure-of-arrays ([d,N], [d,du,N],
-// [d,N]). Returns cudaGetLastError() after the launch (0 = ok).
+// [d,N]); nu is null on a uniform grid, else the Spacing tables of a
+// non-uniform one on the device (sum_k n_k entries of kSpacingStride
+// floats: 1/h+, 1/h-, 1/(h+ h-), 1/(h+ (h+ + h-)), 1/(h- (h+ + h-)) for
+// coordinate i of dim k in entry n_0 + ... + n_{k-1} + i). Returns
+// cudaGetLastError() after the launch (0 = ok).
 int c3sc_dense_backup(const float* v, const float* f0, const float* G, const float* s2,
                       const float* q, const float* r, const float* uc,
                       const uint8_t* t_mask, const float* t_val, float* vnew, int32_t* best,
                       int d, int du, int C, const long long* shape, const float* h,
-                      const int* periodic, float beta, int clip, float lo, float hi,
-                      int pin_input, int wide, void* stream) {
-  const Call c{v,  nullptr, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, best, d, du, shape,
-               h,  periodic, clip, lo, hi, pin_input, wide, (cudaStream_t)stream, 0};
+                      const int* periodic, const float* nu, float beta, int clip, float lo,
+                      float hi, int pin_input, int wide, void* stream) {
+  const Call c{v,     nullptr, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, best, d, du,
+               shape, h,       periodic, nu, clip, lo, hi, pin_input, wide,
+               (cudaStream_t)stream, 0};
   return (int)dispatch(c);
 }
 
@@ -711,26 +830,26 @@ int c3sc_dense_evaluate(const float* v, const int32_t* best, const float* f0, co
                         const float* s2, const float* q, const float* r, const float* uc,
                         const uint8_t* t_mask, const float* t_val, float* vnew, int d, int du,
                         int C, const long long* shape, const float* h, const int* periodic,
-                        float beta, int wide, void* stream) {
+                        const float* nu, float beta, int wide, void* stream) {
   if (best == nullptr) return (int)cudaErrorInvalidValue;
-  const Call c{v,  best, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, nullptr, d, du, shape,
-               h,  periodic, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream, 0};
+  const Call c{v,     best, {f0, G, s2, q, r, uc, t_mask, t_val, C, beta}, vnew, nullptr, d, du,
+               shape, h,    periodic, nu, 0, 0.0f, 0.0f, 0, wide, (cudaStream_t)stream, 0};
   return (int)dispatch(c);
 }
 
 // One improve sweep of the general form: fc [C,d,N]; s2 [d,N] or s2c [C,d,N];
 // q [N] with r [C], or gc [C,N]; the absent ones null. Where fpol is not null
 // the winner's operands go to fpol [d,N], s2pol [d,N] (where s2c is given)
-// and gpol [N] (where gc is).
+// and gpol [N] (where gc is). nu as in c3sc_dense_backup.
 int c3sc_dense_backup_general(const float* v, const float* fc, const float* s2,
                               const float* s2c, const float* q, const float* r,
                               const float* gc, const uint8_t* t_mask, const float* t_val,
                               float* vnew, int32_t* best, float* fpol, float* s2pol, float* gpol,
                               int d, int C, const long long* shape, const float* h,
-                              const int* periodic, float beta, int clip, float lo, float hi,
-                              int pin_input, int wide, void* stream) {
+                              const int* periodic, const float* nu, float beta, int clip,
+                              float lo, float hi, int pin_input, int wide, void* stream) {
   const GeneralCall c{v, nullptr, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta},
-                      {fpol, s2pol, gpol}, vnew, best, d, shape, h, periodic, clip, lo, hi,
+                      {fpol, s2pol, gpol}, vnew, best, d, shape, h, periodic, nu, clip, lo, hi,
                       pin_input, wide, (cudaStream_t)stream, 0};
   return (int)dispatch_general(c);
 }
@@ -743,21 +862,22 @@ int c3sc_dense_evaluate_general(const float* v, const int32_t* best, const float
                                 const float* r, const float* gc, const uint8_t* t_mask,
                                 const float* t_val, float* vnew, int d, int C,
                                 const long long* shape, const float* h, const int* periodic,
-                                float beta, int wide, void* stream) {
+                                const float* nu, float beta, int wide, void* stream) {
   if (best == nullptr) return (int)cudaErrorInvalidValue;
   const GeneralCall c{v, best, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta},
                       {const_cast<float*>(fpol), const_cast<float*>(s2pol),
                        const_cast<float*>(gpol)},
-                      vnew, nullptr, d, shape, h, periodic, 0, 0.0f, 0.0f, 0, wide,
+                      vnew, nullptr, d, shape, h, periodic, nu, 0, 0.0f, 0.0f, 0, wide,
                       (cudaStream_t)stream, 0};
   return (int)dispatch_general(c);
 }
 
 // Load the improve and evaluate kernels that a launch on this grid would run
-// (the structured ones for du >= 1, the general ones for du = 0), launching
-// nothing: a CUDA graph's capture can then record their launches.
+// (the structured ones for du >= 1, the general ones for du = 0; the
+// non-uniform ones where nu is not null), launching nothing: a CUDA graph's
+// capture can then record their launches.
 int c3sc_dense_preload(int d, int du, int C, const long long* shape, const float* h,
-                       const int* periodic) {
+                       const int* periodic, const float* nu) {
   if (du == 0) {
     GeneralCall c{};
     c.op.C = C;
@@ -765,6 +885,7 @@ int c3sc_dense_preload(int d, int du, int C, const long long* shape, const float
     c.shape = shape;
     c.h = h;
     c.periodic = periodic;
+    c.nu = nu;
     c.preload = 1;
     return (int)dispatch_general(c);
   }
@@ -775,6 +896,7 @@ int c3sc_dense_preload(int d, int du, int C, const long long* shape, const float
   c.shape = shape;
   c.h = h;
   c.periodic = periodic;
+  c.nu = nu;
   c.preload = 1;
   return (int)dispatch(c);
 }

@@ -1,0 +1,17 @@
+"""dubins example: a thin wrapper over the registry CLI (reference analogue:
+c3sc/examples/dubins main.c; SURVEY.md §2.1).
+
+    python -m c3sc_tpu_torch.examples.dubins [CLI flags]
+"""
+
+import sys
+
+from c3sc_tpu_torch import cli
+
+
+def main(argv=None):
+    return cli.main(["dubins"] + list(sys.argv[1:] if argv is None else argv))
+
+
+if __name__ == "__main__":
+    main()

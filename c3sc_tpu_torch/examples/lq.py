@@ -1,0 +1,17 @@
+"""lq example: a thin wrapper over the registry CLI (reference analogue:
+c3sc/examples/lq main.c; SURVEY.md §2.1).
+
+    python -m c3sc_tpu_torch.examples.lq [CLI flags]
+"""
+
+import sys
+
+from c3sc_tpu_torch import cli
+
+
+def main(argv=None):
+    return cli.main(["lq"] + list(sys.argv[1:] if argv is None else argv))
+
+
+if __name__ == "__main__":
+    main()

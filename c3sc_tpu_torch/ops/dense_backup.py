@@ -26,8 +26,13 @@ any-callable contract and of the XLA sweeps of ``c3sc_tpu/solvers/dense.py``:
 problem and grid, in candidate chunks, into the per-candidate drift
 ``fc_k [C, d, N]`` (and ``s2c_k [C, d, N]`` where ``sigma2_x`` is missing,
 ``gc [C, N]`` where ``cost_q`` or ``cost_r`` is); ``dense_backup`` and
-``dense_evaluate`` route such operands there. Non-uniform grids raise
-``NotImplementedError`` on CUDA.
+``dense_evaluate`` route such operands there.
+
+Non-uniform grids. Every entry takes them: on such a grid the operands carry
+``nu_k [sum_k n_k, 8]``, each dim's table of the reciprocal spacings the
+unequal-spacing stencil of ``mca._stencil_nonuniform`` uses at each of its
+coordinates (``spacing_tables``), and the kernels scale each candidate's
+drift by ``1/h+`` or ``1/h-`` once its sign is known.
 
 The policy. ``dense_vi`` runs ``eval_sweeps`` fixed-policy sweeps after
 every improve. ``dense_backup(..., with_policy=True)`` returns the improve's
@@ -85,6 +90,8 @@ class DenseOperands:
     ``s2c_k [C, d, N]`` the variances where ``sigma2_x`` is missing (else
     ``s2_k``), and ``gc [C, N]`` the stage cost where ``cost_q`` or
     ``cost_r`` is (else ``q`` and ``r``).
+
+    On a non-uniform grid ``nu_k`` holds ``spacing_tables(grid)``.
     """
 
     problem: ControlProblem
@@ -101,6 +108,7 @@ class DenseOperands:
     fc_k: Optional[torch.Tensor] = None
     s2c_k: Optional[torch.Tensor] = None
     gc: Optional[torch.Tensor] = None
+    nu_k: Optional[torch.Tensor] = None   # spacing_tables(grid) on a non-uniform grid
 
     @property
     def general(self) -> bool:
@@ -125,11 +133,13 @@ class DenseOperands:
         outputs, built once: the device pointers and the scalar and grid
         arguments as ctypes values. Structured: (f0_k, G_k, s2_k, q, r, uc,
         t_mask, t_val) and (d, du, C, ...); general: (fc_k, s2_k, s2c_k, q,
-        r, gc, t_mask, t_val), the absent ones null, and (d, C, ...).
-        Raises for what the kernels do not take."""
+        r, gc, t_mask, t_val), the absent ones null, and (d, C, ...). The
+        grid arguments end with the spacing tables' pointer (null on a
+        uniform grid). Raises for what the kernels do not take."""
         problem, grid = self.problem, self.grid
-        if not grid.uniform:
-            raise NotImplementedError("dense sweep kernel: uniform grids only")
+        if (self.nu_k is None) != grid.uniform:
+            raise ValueError("operands of a non-uniform grid carry its spacing tables, "
+                             "and only those do: build them with make_dense_operands")
         d, du = grid.ndim, problem.du
         if d > MAX_D or du > MAX_DU:
             raise NotImplementedError(f"dense sweep kernel: d <= {MAX_D}, du <= {MAX_DU}")
@@ -140,13 +150,13 @@ class DenseOperands:
             tensors = (self.f0_k, self.G_k, self.s2_k, self.q, self.r, self.uc, self.t_mask,
                        self.t_val)
         if any(t is not None and (t.device != self.x.device or not t.is_contiguous())
-               for t in tensors):
+               for t in (*tensors, self.nu_k)):
             raise ValueError("operands must be contiguous and share one device")
         shape = (ctypes.c_longlong * d)(*grid.shape)
         h = (ctypes.c_float * d)(*np.asarray(grid.h, np.float32).tolist())
         periodic = (ctypes.c_int * d)(*map(int, grid.periodic))
         sizes = (d, self.uc.shape[0]) if self.general else (d, du, self.uc.shape[0])
-        scalars = (*sizes, shape, h, periodic, float(problem.beta))
+        scalars = (*sizes, shape, h, periodic, _ptr(self.nu_k), float(problem.beta))
         return tuple(0 if t is None else t.data_ptr() for t in tensors), scalars
 
 
@@ -169,7 +179,39 @@ def make_dense_operands(problem: ControlProblem, grid: Grid, controls,
     else:
         declared = _general_operands(problem, x, uc)
     return DenseOperands(problem, grid, x, uc, t_mask.contiguous(),
-                         t_val.to(f32).contiguous(), **declared)
+                         t_val.to(f32).contiguous(), nu_k=spacing_tables(grid, x.device),
+                         **declared)
+
+
+SPACING_STRIDE = 8  # kSpacingStride in csrc/dense_backup.cu
+
+
+def spacing_tables(grid: Grid, device) -> Optional[torch.Tensor]:
+    """The kernels' spacing tables of a non-uniform grid, None on a uniform
+    one: ``[sum_k n_k, 8]`` float32, row ``n_0 + ... + n_{k-1} + i`` holding
+    ``1/h+, 1/h-, 1/(h+ h-), 1/(h+ (h+ + h-)), 1/(h- (h+ + h-))`` (then
+    zeros) for coordinate ``i`` of dim ``k``, with ``h+-`` from
+    ``Grid.node_h``, worked out in float64 and rounded once."""
+    if grid.uniform:
+        return None
+    rows = []
+    for k in range(grid.ndim):
+        hp, hm = grid.node_h(k)
+        t = np.zeros((len(hp), SPACING_STRIDE))
+        t[:, :5] = np.stack([1.0 / hp, 1.0 / hm, 1.0 / (hp * hm), 1.0 / (hp * (hp + hm)),
+                             1.0 / (hm * (hp + hm))], axis=-1)
+        rows.append(t)
+    return torch.as_tensor(np.concatenate(rows).astype(np.float32), device=device)
+
+
+def node_spacings(ops: DenseOperands) -> torch.Tensor:
+    """Each node's five reciprocal spacings from ``ops.nu_k``, as the
+    kernels read them: [5, N, d]."""
+    grid = ops.grid
+    idx = grid.node_indices(ops.x.device)                          # [N, d]
+    off = np.concatenate([[0], np.cumsum(grid.shape)[:-1]])
+    rows = idx + torch.as_tensor(off, device=idx.device)
+    return ops.nu_k[rows][..., :5].permute(2, 0, 1)
 
 
 def _general_operands(problem: ControlProblem, x, uc, chunk_elems: int = 1 << 22):
@@ -290,21 +332,35 @@ def candidate_rhs_factored(ops: DenseOperands, v, clip=None, pin_input: bool = F
     ``dt = 1 / Q``, ``rhs = dt ((r + q) + exp(-beta dt) (A0 + S))``. The
     general entries take ``fh = fc / h`` from the per-candidate drift, and
     ``a``, ``Q0``, ``A0`` from ``s2c`` and the cost from ``gc`` where those
-    are per candidate. It equals ``candidate_rhs`` to float rounding; the
-    tests hold the kernels' algebra against the JAX package through it.
+    are per candidate. On a non-uniform grid, from the spacing tables:
+    ``Q0 = sum_j s2_j / (h+ h-) + 1e-10``, ``A0 = sum_j s2_j (v+_j / (h+ (h+ +
+    h-)) + v-_j / (h- (h+ + h-)))`` and ``fh = f / h+`` where ``f > 0``,
+    ``f / h-`` elsewhere, with f unscaled. It equals ``candidate_rhs`` to
+    float rounding; the tests hold the kernels' algebra against the JAX
+    package through it.
     """
     grid = ops.grid
     vp, vm = neighbor_values(_input_values(ops, v, clip, pin_input), grid)   # [N, d]
-    h = torch.as_tensor(grid.h, dtype=torch.float32, device=vp.device)
-    ih = 1.0 / h
     s2 = ops.s2 if ops.s2_k is not None else ops.s2c_k.transpose(1, 2)       # [(C,) N, d]
-    a = s2 * (0.5 / (h * h))
-    Q0 = torch.sum(2.0 * a, dim=-1) + _EPS
-    A0 = torch.sum(a * (vp + vm), dim=-1)
-    if ops.general:
-        fh = ops.fc_k.transpose(1, 2) * ih                                    # [C, N, d]
+    if ops.nu_k is None:
+        h = torch.as_tensor(grid.h, dtype=torch.float32, device=vp.device)
+        ih = 1.0 / h
+        a = s2 * (0.5 / (h * h))
+        Q0 = torch.sum(2.0 * a, dim=-1) + _EPS
+        A0 = torch.sum(a * (vp + vm), dim=-1)
+        if ops.general:
+            fh = ops.fc_k.transpose(1, 2) * ih                                # [C, N, d]
+        else:
+            fh = (ops.f0 * ih)[None] + torch.einsum("ndm,cm->cnd", ops.G * ih[:, None], ops.uc)
     else:
-        fh = (ops.f0 * ih)[None] + torch.einsum("ndm,cm->cnd", ops.G * ih[:, None], ops.uc)
+        ihp, ihm, cpm, cp, cm = node_spacings(ops)                            # [N, d] each
+        Q0 = torch.sum(s2 * cpm, dim=-1) + _EPS
+        A0 = torch.sum(s2 * (cp * vp + cm * vm), dim=-1)
+        if ops.general:
+            f = ops.fc_k.transpose(1, 2)
+        else:
+            f = ops.f0[None] + torch.einsum("ndm,cm->cnd", ops.G, ops.uc)
+        fh = f * torch.where(f > 0, ihp, ihm)
     g = ops.gc if ops.gc is not None else ops.r[:, None] + ops.q[None]
     af = torch.abs(fh)
     dt = 1.0 / (Q0 + torch.sum(af, dim=-1))
@@ -351,6 +407,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     desc = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
             ctypes.POINTER(ctypes.c_int)]
+    desc = desc + [ptr]   # the spacing tables (null on a uniform grid)
     lib.c3sc_dense_backup.argtypes = ([ptr] * 11 + [i32] * 3 + desc
                                       + [f32, i32, f32, f32, i32, i32, ptr])
     lib.c3sc_dense_backup.restype = i32
@@ -419,11 +476,11 @@ def preload(ops: DenseOperands) -> None:
     otherwise loaded at its first launch, which a CUDA graph's capture must
     not have to do: the graphed solvers call this before they capture."""
     _, scalars = ops.kernel_args
-    d, C, shape, h, periodic = (scalars[0], scalars[1], *scalars[2:5]) if ops.general \
-        else (scalars[0], scalars[2], *scalars[3:6])
+    d, C, shape, h, periodic, nu = (scalars[0], scalars[1], *scalars[2:6]) if ops.general \
+        else (scalars[0], scalars[2], *scalars[3:7])
     du = 0 if ops.general else scalars[1]
     with torch.cuda.device(ops.x.device):
-        err = _lib().c3sc_dense_preload(d, du, C, shape, h, periodic)
+        err = _lib().c3sc_dense_preload(d, du, C, shape, h, periodic, nu)
     if err != 0:
         raise RuntimeError(f"loading the dense sweep kernels failed with CUDA error {err}")
 

@@ -51,6 +51,13 @@ def transition(problem: ControlProblem, grid: Grid, x, u):
     return _stencil_nonuniform(f, s2, hp.to(f.dtype), hm.to(f.dtype))
 
 
+def transition_batch(problem: ControlProblem, grid: Grid, x, u):
+    """Stencil batched over arbitrary leading axes of x [..., d], u [..., m]:
+    ``transition`` itself, whose callables broadcast (the JAX package vmaps
+    ``transition`` once a leading axis)."""
+    return transition(problem, grid, x, u)
+
+
 def _stencil_nonuniform(f, s2, hp, hm):
     """Kushner–Dupuis upwind stencil with unequal spacings h+ / h-:
 

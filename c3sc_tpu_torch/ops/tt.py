@@ -11,9 +11,6 @@ masking at all; rounding restores the invariant by masking truncated
 directions instead of changing shapes. On the GPU the same padding keeps
 every launch of a rank-adaptive solve at one shape, so nothing in it depends
 on a rank read back to the host.
-
-``tt_dot``, ``tt_norm``, ``tt_mult`` and ``tt_integrate`` of the JAX module
-are not ported yet.
 """
 
 from __future__ import annotations
@@ -317,6 +314,115 @@ def tt_add(a: TT, b: TT, on_overflow: str = "round", round_tol: float = 1e-7) ->
         )
     wide = _tt_add_raw(a, b, 2 * R)
     return _repad(tt_round(wide, round_tol, R), R)
+
+
+def tt_dot(a: TT, b: TT) -> torch.Tensor:
+    """<A, B>, the inner product over all entries (a 0-d tensor)."""
+    # first cores contribute only row 0 (r0 == 1): [n, R] x [n, R] -> [R, R]
+    t = torch.einsum("nb,nd->bd", a.cores[0][0], b.cores[0][0])
+    for k in range(1, a.ndim):
+        t = torch.einsum("ac,anb,cnd->bd", t, a.cores[k], b.cores[k])
+    return t[0, 0]
+
+
+def tt_norm(tt: TT) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(tt_dot(tt, tt), min=0.0))
+
+
+def _tt_mult_raw(a: TT, b: TT, R_out: int) -> TT:
+    """Hadamard product packed into padding R_out (exact iff ra*rb fits)."""
+    R = a.rmax
+    dev = a.cores[0].device
+    RR = torch.arange(R * R, device=dev)
+    cores = []
+    ranks = [torch.ones((), dtype=torch.int32, device=dev)]
+    for k in range(a.ndim):
+        ca, cb = a.cores[k], b.cores[k]
+        n = ca.shape[1]
+        # Kronecker per slice: out[(i1 i2), n, (j1 j2)] = ca[i1,n,j1] * cb[i2,n,j2]
+        kron = torch.einsum("anb,cnd->acnbd", ca, cb).reshape(R * R, n, R * R)
+        # compact the active block: active rows are (i1 < ra, i2 < rb) at
+        # position i1*R+i2; gather them into the leading ra*rb rows
+        rb_l = b.ranks[k]
+        ra_r, rb_r = a.ranks[k + 1], b.ranks[k + 1]
+        row_src = torch.clamp((RR // rb_l) * R + RR % rb_l, 0, R * R - 1)
+        col_src = torch.clamp((RR // rb_r) * R + RR % rb_r, 0, R * R - 1)
+        packed = kron[row_src][:, :, col_src]
+        if R_out <= R * R:
+            out = packed[:R_out, :, :R_out]
+        else:
+            out = torch.zeros((R_out, n, R_out), dtype=ca.dtype, device=dev)
+            out[: R * R, :, : R * R] = packed
+        cores.append(out)
+        ranks.append(torch.clamp(ra_r * rb_r, max=R_out).to(torch.int32))
+    return mask_cores(TT(tuple(cores), torch.stack(ranks)))
+
+
+def tt_mult(a: TT, b: TT, on_overflow: str = "round", round_tol: float = 1e-7) -> TT:
+    """Elementwise (Hadamard) product; representation ranks multiply.
+
+    Reference: ``function_train_mult`` (C3 ``src/lib_clinalg/ft.c``). The
+    product ranks ra*rb can exceed the static padding R:
+
+    - ra*rb <= R everywhere: exact path at R;
+    - overflow + ``on_overflow='raise'``: ValueError;
+    - overflow + ``on_overflow='round'`` (default): the product is formed
+      EXACTLY at padding max_k(ra_k*rb_k), TT-rounded to relative
+      ``round_tol`` with rank cap R and re-padded to R.
+
+    Reads both rank vectors on the host (the JAX module's path for concrete
+    ranks); not for use inside a solve's iteration.
+    """
+    if on_overflow not in ("round", "raise"):
+        raise ValueError(f"on_overflow must be 'round' or 'raise', got {on_overflow!r}")
+    R = a.rmax
+    combined = _concrete_ranks(a) * _concrete_ranks(b)
+    if int(combined.max()) <= R:
+        return _tt_mult_raw(a, b, R)
+    if on_overflow == "raise":
+        raise ValueError(
+            f"tt_mult rank overflow: product ranks {combined.tolist()} "
+            f"exceed padding R={R}; pass on_overflow='round' or enlarge R"
+        )
+    wide = _tt_mult_raw(a, b, int(combined.max()))
+    return _repad(tt_round(wide, round_tol, R), R)
+
+
+def tt_integrate(tt: TT, grid=None, weights: Sequence | None = None) -> torch.Tensor:
+    """Integral of the (multilinear-interpolated) TT over the grid box.
+
+    Reference: ``function_train_integrate`` (C3 ``src/lib_clinalg/ft.c`` +
+    ``lib_quadrature``). With the linelm class the exact integral is the
+    trapezoid rule over the nodes; periodic dims use uniform weights (the
+    rectangle rule over the circle). Explicit per-dim ``weights`` override;
+    with neither, every weight is 1 (the sum of the entries).
+    """
+    v = None
+    for k, core in enumerate(tt.cores):
+        n = core.shape[1]
+        if weights is not None:
+            w = np.asarray(weights[k], np.float64)
+        elif grid is not None:
+            if grid.periodic[k]:
+                w = np.full(n, float(grid.h[k]))
+            elif grid.uniform:
+                w = np.full(n, float(grid.h[k]))
+                w[0] *= 0.5
+                w[n - 1] *= 0.5
+            elif n == 1:
+                w = np.ones(1)    # a single-node dim: np.diff is empty
+            else:
+                # trapezoid weights on arbitrary nodes: w_i = (gap_l + gap_r) / 2
+                gaps = np.diff(grid.nodes(k))
+                w = np.concatenate([gaps[:1] * 0.5, 0.5 * (gaps[1:] + gaps[:-1]),
+                                    gaps[-1:] * 0.5])
+        else:
+            w = np.ones(n)
+        # the weights in float32 first, as the JAX module holds them
+        wt = torch.as_tensor(w.astype(np.float32), dtype=core.dtype, device=core.device)
+        m = torch.einsum("rns,n->rs", core, wt)
+        v = m[0] if v is None else v @ m
+    return v[0]
 
 
 def tt_refine_grid(tt: TT, grid_coarse, grid_fine) -> TT:

@@ -34,8 +34,11 @@ Seeds: ``fused_tt_vi_refined(seed=)`` is an int or a sequence of the
 sub-solves' seeds (``c3sc_tpu_torch.seeds``). A JAX key ``k`` reaches
 ``init_fn`` as the integer ``key_data(k)[-1]``.
 
+Checkpoints (``fused_tt_vi(checkpoint_path=, resume_from=)``) are the JAX
+package's files (``utils/checkpoint.py``).
+
 Not ported yet (each raises ``NotImplementedError``): ``mesh=``,
-``checkpoint_path`` / ``resume_from``, ``_cholqr2``.
+``_cholqr2``.
 """
 
 from __future__ import annotations
@@ -1315,10 +1318,19 @@ def fused_tt_vi(
     returned ``v`` is the correction w alone, and the validation probe
     scores base + w.
 
-    Not ported yet: ``mesh=``, ``checkpoint_path`` / ``resume_from``.
+    ``checkpoint_path``: the carry is saved there (``save_fused_carry``,
+    the JAX package's file) at the first chunk boundary at least
+    ``checkpoint_every`` iterations after the last save (never, for 0), and
+    once more when the solve ends, before any rollback to an earlier
+    stage. ``resume_from``: a checkpoint of either package continues, at
+    the rank cap it was saved at, with a fresh stopping state; the port's
+    own files also restore the restarts' seed draws. Under ``cuda_graph``
+    the saves read the carry at chunk boundaries, where the loop reads its
+    stopping state anyway, and a resumed carry is copied into the graph's
+    static inputs.
+
+    Not ported yet: ``mesh=``.
     """
-    if checkpoint_path is not None or resume_from is not None:
-        _not_ported("checkpoint_path / resume_from", "utils/checkpoint.py")
     if controls is None:
         controls = problem.control_candidates(n_controls)
     device = resolve_device(device)
@@ -1340,6 +1352,19 @@ def fused_tt_vi(
 
     cur_rmax = rmax
     solver = build(cur_rmax)
+    if resume_from is not None:
+        from c3sc_tpu_torch.utils.checkpoint import (checkpoint_seed_stream, fused_context,
+                                                     load_fused_carry)
+
+        carry = load_fused_carry(resume_from, expect=fused_context(problem, grid, cur_rmax),
+                                 device=device)
+        stream = checkpoint_seed_stream(resume_from)
+        if stream is not None:
+            seeds.bit_generator.state = stream["rng"]
+        ck_R = carry.cores[0].shape[0]
+        if ck_R != cur_rmax:
+            cur_rmax = ck_R
+            solver = build(cur_rmax)
     if carry is None:
         if v0 is not None:
             R_v0 = v0.cores[0].shape[0]
@@ -1364,10 +1389,16 @@ def fused_tt_vi(
         )
     chunk = log_every if log_every > 0 else window
 
+    def save(out):
+        from c3sc_tpu_torch.utils.checkpoint import fused_context, save_fused_carry
+
+        save_fused_carry(checkpoint_path, out, context=fused_context(problem, grid, cur_rmax),
+                         stream={"rng": seeds.bit_generator.state})
+
     def drive(solver, carry):
         """Chunks of ``chunk`` blind iterations; one host read per chunk."""
         out = carry
-        prev_it = _host_state(out)["it"]
+        prev_it = last_saved = _host_state(out)["it"]
         while True:
             out = solver.run_fn(out, chunk)
             hs = _host_state(out)
@@ -1384,6 +1415,10 @@ def fused_tt_vi(
                     rec["probe_cost"] = hs["probe_cost"]
                     rec["best_cost"] = hs["best_cost"]
                 metrics.log("fused_vi", **rec)
+            if checkpoint_path is not None and checkpoint_every > 0 and (
+                    hs["it"] - last_saved >= checkpoint_every):
+                save(out)
+                last_saved = hs["it"]
             stop = (
                 hs["it"] >= max_iters
                 or hs["residual"] <= tol
@@ -1451,6 +1486,10 @@ def fused_tt_vi(
                 it=out.it, warm_until=out.it + 60)
             continue
         break
+    # the resumable state on disk is the LATEST progress, not the returned
+    # (possibly earlier best) stage: save before any rollback
+    if checkpoint_path is not None:
+        save(out)
     # a grown stage that failed to pay means the cap overshot the problem's
     # epsilon-rank — return the BEST stage's iterate, not the last one
     if best_out is not None and best_hs["best_absdisp"] < hs["best_absdisp"]:

@@ -12,10 +12,10 @@ The sweeps are kernel K1's improve sweep (``ops/dense_backup.dense_backup``,
 ``csrc/dense_backup.cu`` on a CUDA device, its plain version on the CPU)
 with the patch's own terminal mask: the sub-box faces pinned to the TT data,
 and interior obstacle or goal nodes pinned as the parent operator pins them.
-K1 takes uniform grids only, so a patch whose sub-box is not uniform (a
-slice of a periodic dimension's nodes, say) runs on the CPU only; on CUDA it
-raises ``NotImplementedError``. On a CUDA device a sweep is one CUDA
-graph, captured once and replayed (``solvers.dense.GraphedSweeps``).
+A sub-box that is not uniform (a slice of a periodic dimension's nodes is
+not, through float rounding alone) runs K1's non-uniform stencil. On a CUDA
+device a sweep is one CUDA graph, captured once and replayed
+(``solvers.dense.GraphedSweeps``).
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ from c3sc_tpu_torch.ops.argmin import first_argmin, lbfgs_minimize, pgd_minimize
 from c3sc_tpu_torch.ops.cross import CrossState, tt_cross
 from c3sc_tpu_torch.ops.tt import TT, tt_gather_eval, tt_round, tt_zeros
 from c3sc_tpu_torch.seeds import seed_stream
+from c3sc_tpu_torch.utils.checkpoint import load_solver_state, save_solver_state
 
 REFINE_METHODS = ("pgd", "lbfgs")
 
@@ -232,23 +233,31 @@ def tt_vi(
     with ``.log(name, **fields)``) gets a ``vi_iter`` record an iteration,
     ``callback(it, v, residual)`` is called after each.
 
-    Not ported yet: ``checkpoint_path`` / ``resume_from`` (they wait for
-    utils/checkpoint.py).
+    ``checkpoint_path``: the solver state (TT, cross index sets, iteration,
+    the seed stream's state) is saved there every ``checkpoint_every``
+    iterations and when the residual falls below ``tol``
+    (``save_solver_state``, the JAX package's file). ``resume_from``: a
+    checkpoint of either package continues at the iteration after the saved
+    one, warm from its TT and index sets; the port's own files also restore
+    the seed stream, a JAX-written one (whose key the port cannot use)
+    continues with the stream drawn from ``seed``.
     """
-    if checkpoint_path is not None or resume_from is not None:
-        raise NotImplementedError("checkpoint_path / resume_from is not ported yet: it waits "
-                                  "for utils/checkpoint.py")
     if cross_method not in ("cross", "dmrg"):
         raise ValueError(f"cross_method must be 'cross' or 'dmrg', got {cross_method!r}")
     device = resolve_device(device)
     if controls is None:
         controls = problem.control_candidates(n_controls)
+    start_iter, stream = 0, None
+    if resume_from is not None:
+        ck = load_solver_state(resume_from, device)
+        v0, state = ck["v"], ck.get("state", state)
+        start_iter, stream = ck["iteration"] + 1, ck.get("seed_stream")
     bellman = make_bellman_kernel(problem, grid, controls, chunk, dtype,
                                   refine_steps=refine_steps, refine_method=refine_method)
     rng = np.random.default_rng(777)
     sample_idx = np.stack([rng.integers(0, n, size=sample_size) for n in grid.shape], axis=-1)
     sample_t = torch.as_tensor(sample_idx, dtype=torch.int64, device=device)
-    next_seed = seed_stream(seed, max_iters)
+    next_seed = seed_stream(seed, max_iters, stream)
     if cross_method == "dmrg":
         from c3sc_tpu_torch.solvers.dmrg import dmrg_cross
 
@@ -258,8 +267,8 @@ def tt_vi(
     n_evals = 0
     t0 = time.time()
     residual = float("inf")
-    it = 0
-    for it in range(max_iters):
+    it = start_iter
+    for it in range(start_iter, max_iters):
         f = partial(bellman, v)
         n_sw = cross_sweeps_first if state is None else cross_sweeps
         if cross_method == "dmrg":
@@ -288,6 +297,9 @@ def tt_vi(
                         evals=n_evals)
         if callback is not None:
             callback(it, v, residual)
+        if checkpoint_path is not None and ((it + 1) % checkpoint_every == 0 or residual < tol):
+            save_solver_state(checkpoint_path, v, state, it, next_seed.state(),
+                              extras={"residual": residual, "problem": problem.name})
         if residual < tol:
             break
     return TTVISolution(v=v, state=state, residual=residual, iterations=it + 1,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the c3sc_tpu_torch dense Bellman path, the fused TT value
 iteration, the receding-horizon control path, the flagship accuracy stack,
-the remaining models and the remaining solvers once on one NVIDIA GPU.
+the remaining models, the remaining solvers and the users' entry points
+(the CLI, the C3Control builder) once on one NVIDIA GPU.
 
     python3 chip_smoke.py              every phase
     python3 chip_smoke.py --phases F   phases A, B, D at 9^6 and F (while developing)
@@ -14,6 +15,8 @@ the remaining models and the remaining solvers once on one NVIDIA GPU.
     python3 chip_smoke.py --phases I   phases A, B and I at the 7D recipe's full depth
                                        (both fused bases, 3 cycles, 128 closed loops)
     python3 chip_smoke.py --phases J   phases A, B, D at 9^6 and J at its full depth
+    python3 chip_smoke.py --phases K   phases A, B and K at full depth (the documented
+                                       quadcopter CLI run uncut)
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -152,8 +155,33 @@ non-zero, with no result line):
          0.5 %, <= 15 outer iterations), mpc_run on LQ against the dense
          value's closed loop under the same noise; tt_vi on the 9^6
          quadcopter for 20 iterations: ms and host syncs an iteration
+  K  K1 on non-uniform grids and the users' entry points:
+     K.1 (kernels outside the counted run) each K1 entry on tanh grids
+         (tests/test_nonuniform.py's nodes, sharp 1.5) against its plain
+         version by C's bars, both semantics: the quadcopter 11^6 and
+         quadcopter7 9^7 (25 candidates, structured entries), the glider
+         (15, 11, 11, 11) (9 candidates, general entries); ms a sweep beside
+         the uniform grid of the same shape, timed in the same run, and the
+         bound with the spacing tables counted. On the main path: dense_vi on
+         the LQ 21^2 tanh grid and solve_local_patch on the pendulum's
+         non-uniform patch, card against CPU within 1e-4 x max|v|
+     K.2 the CLI (c3sc_tpu_torch.cli.main in this process): the documented
+         quadcopter run (--n 31 --rmax 20, 81 candidates, 256 x 500-step
+         rollouts; 2,000 iterations under --phases K, cut to 400 in the whole
+         script) with ms an iteration, its checkpoints and rollout_wall_s;
+         dubins --n 41 --solver dense (K1), its vf.npz bit-equal to dense_vi
+         called directly; tests/test_cli.py's flows at LQ 21^2 rank 8 (the
+         fused run, --load solver_state.npz, --load vf.npz, --save-format c3tt
+         --policy-basis poly, --load vf.c3tt) and --solver tt and pi, each
+         with the JAX CLI's summary keys and strict-JSON metrics.jsonl; the
+         pendulum with --policy-basis poly (a periodic dim), whose ft_eval
+         and ft_grad_eval make no host sync; then
+         python -m c3sc_tpu_torch.cli lq --n 21 --solver dense as a subprocess
+     K.3 the C3Control builder: tests/test_control_api.py's Riccati bar (31^2,
+         rmax 10, rel < 0.08) and its closed loops (poly + refine realizes at
+         most lerp's cost under the same noise)
 K1's launch counts (all four entries) are set to 0 before each of D+E, F,
-G, H, I and J and read after it (each must launch the structured entries, H
+G, H, I, J and K and read after it (each must launch the structured entries, H
 the improve entry, I all four); the kernels line sums them. Then one JSON
 line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -217,11 +245,17 @@ def phase_b_build():
     # registers and spills of the 6D / 2-control instantiations and of the
     # glider's general ones (d = 4), from ptxas -v
     text = (_ext.build_dir() / "build.log").read_text()
-    for kind, args, mangled in (("dense_backup_kernel", "6,2", "ILi6ELi2EjE"),
-                                ("dense_evaluate_kernel", "6,2", "ILi6ELi2EjE"),
-                                ("dense_backup_general_kernel", "4", "ILi4EjE"),
-                                ("dense_evaluate_general_kernel", "4", "ILi4EjE")):
-        # ...ILi6ELi2EjE...: d = 6, du = 2, 32-bit (unsigned int) indices
+    for kind, args, mangled in (("dense_backup_kernel", "6,2", "ILi6ELi2ELi0EjE"),
+                                ("dense_evaluate_kernel", "6,2", "ILi6ELi2ELi0EjE"),
+                                ("dense_backup_general_kernel", "4", "ILi4ELi0EjE"),
+                                ("dense_evaluate_general_kernel", "4", "ILi4ELi0EjE"),
+                                ("dense_backup_kernel", "6,2,nu", "ILi6ELi2ELi1EjE"),
+                                ("dense_evaluate_kernel", "6,2,nu", "ILi6ELi2ELi1EjE"),
+                                ("dense_backup_kernel", "7,2,nu", "ILi7ELi2ELi1EjE"),
+                                ("dense_backup_general_kernel", "4,nu", "ILi4ELi1EjE"),
+                                ("dense_evaluate_general_kernel", "4,nu", "ILi4ELi1EjE")):
+        # ...ILi6ELi2ELi0EjE...: d = 6, du = 2, the uniform stencil (Li1: the
+        # non-uniform one), 32-bit (unsigned int) indices
         m = re.search(kind + mangled + r".*?Used (\d+) registers", text, re.S)
         spill = re.search(kind + mangled + r".*?(\d+) bytes spill stores", text, re.S)
         if m is None or spill is None:
@@ -1935,8 +1969,7 @@ def _rel_err(values, v_dense, by="range"):
     return ((values.double() - vd).abs() / scale).cpu().numpy()
 
 
-def count_syncs(fn):
-    """fn() under torch.profiler; returns (its result, the host syncs in it)."""
+def _profiled_syncs(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1944,9 +1977,17 @@ def count_syncs(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == DeviceType.CPU and e.name in SYNC_NAMES)
-    return out, n - 1    # the closing synchronize is the profile's own
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CPU and e.name in SYNC_NAMES)
+
+
+def count_syncs(fn):
+    """fn() under torch.profiler; returns (its result, the host syncs in it):
+    the syncs recorded less those of an empty call profiled the same way
+    (the closing synchronize, and the one the profiler makes when it stops)."""
+    _, base = _profiled_syncs(lambda: None)
+    out, n = _profiled_syncs(fn)
+    return out, n - base
 
 
 def _pendulum(n, **kw):
@@ -2287,6 +2328,338 @@ def phase_j_solvers(full=False):
                                          for i, (a, b) in enumerate(zip(marks, marks[1:]))))
 
 
+# ---- phase K: K1 on non-uniform grids, the CLI and the builder -------------------
+
+K_SCRATCH = os.path.join(REPO, ".chip_scratch", "k")   # listed in .gitignore
+K1_UNIFORM_MS = {"dense_backup": 0.1362, "dense_evaluate": 0.0583}   # PERF.md, 11^6, 25 cand.
+# the summary keys of the JAX CLI (c3sc_tpu/cli.py) by solver, before the rollouts' keys
+CLI_KEYS = {"dense": {"solver", "residual", "sweeps"},
+            "fused": {"solver", "residual", "iterations", "ranks", "wall"},
+            "tt": {"solver", "residual", "iterations", "evals", "ranks", "wall"},
+            "pi": {"solver", "residual", "outer_iters", "evals", "wall"}}
+
+
+def tanh_grid(prob, shape, sharp=1.5):
+    """The problem's default grid with tests/test_nonuniform.py's nodes,
+    denser near the centre, on every bounded dim (periodic dims keep their
+    uniform nodes)."""
+    from c3sc_tpu_torch.grids import Grid
+
+    g = prob.default_grid(shape)
+    nodes = []
+    for k, (lo, hi, n) in enumerate(zip(g.lb, g.ub, g.shape)):
+        t = np.tanh(sharp * np.linspace(-1, 1, n)) / np.tanh(sharp)
+        nodes.append(g.nodes(k) if g.periodic[k] else lo + (t + 1) * 0.5 * (hi - lo))
+    return Grid.create(g.lb, g.ub, g.shape, g.periodic, nodes=nodes)
+
+
+def phase_k1_kernels():
+    """K.1 (outside the counted run): each K1 entry on non-uniform (tanh)
+    grids against its plain version, by compare_sweep's bars (2e-4, argmins
+    off near-ties, the improve's policy bit-equal to gather_policy, the
+    evaluate under it bit-equal to the improve, 64-bit indices bit-equal to
+    32-bit), under both semantics: the structured entries on the quadcopter
+    at 11^6 and on quadcopter7 at 9^7 (d = 7, du = 2), 25 candidates; the
+    general ones on the glider at (15, 11, 11, 11), 9 candidates. Then ms a
+    sweep (CUDA graph of 100 launches) on the non-uniform grid and on the
+    uniform grid of the same shape, in this run, and the bound with the
+    spacing tables counted (each used float read once). Returns (max
+    differences, {entry: the non-uniform record for the kernels line})."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    errs = dict.fromkeys(KERNELS, 0.0)
+    record = {}
+    cases = (("quadcopter", make_problem("quadcopter", **QUAD), (11,) * 6, 5),
+             ("glider", make_problem("glider"), (15, 11, 11, 11), 9),
+             ("quadcopter7", make_problem("quadcopter7", **QUAD), (9,) * 7, 5))
+    for name, prob, shape, per_dim in cases:
+        uc = prob.control_candidates(per_dim)
+        grid = tanh_grid(prob, shape)
+        ops = db.make_dense_operands(prob, grid, uc, DEVICE)
+        kind = "general" if ops.general else "structured"
+        label = f"{prob.name} {'x'.join(map(str, shape))} tanh, {len(uc)} candidates, {kind}"
+        v = torch.as_tensor(np.random.default_rng(0).uniform(0, 5, shape), dtype=torch.float32,
+                            device=DEVICE)
+        names = KERNELS[2:] if ops.general else KERNELS[:2]
+        for sem, (clip, pin) in (("Pallas", (prob.value_bounds, True)),
+                                 ("dense_vi", (None, False))):
+            e = compare_sweep(ops, v, clip, pin, f"{label}, {sem} semantics", tag="K.1")
+            errs[names[0]], errs[names[1]] = max(errs[names[0]], e[0]), max(errs[names[1]], e[1])
+        uni = db.make_dense_operands(prob, prob.default_grid(shape), uc, DEVICE)
+        ms = {}
+        for form, o in (("nonuniform", ops), ("uniform", uni)):
+            _, pol = db.dense_backup(o, v, with_policy=True)
+            ms[form] = {names[0]: graph_ms(lambda: db.dense_backup(o, v, with_policy=True)),
+                        names[1]: graph_ms(lambda: db.dense_evaluate(o, v, pol))}
+        bounds = (general_sweep_bounds if ops.general else sweep_bounds)(ops)
+        table = 4 * 5 * sum(shape)                        # the spacing tables' used floats
+        bounds = _bounds({k: (b["bytes"] + table, b["flops"]) for k, b in bounds.items()})
+        for entry in names:
+            b, t, u = bounds[entry]["bound_ms"], ms["nonuniform"][entry], ms["uniform"][entry]
+            log(f"[K.1] {label}: {entry} {t:.4f} ms a sweep (uniform grid of the same shape "
+                f"{u:.4f} ms, x{t / u:.3f}); bound {b:.4f} ms ({bounds[entry]['bound_by']}, "
+                f"tables counted): {100 * b / t:.1f} % of the bound")
+            if name in ("quadcopter", "glider"):
+                record[entry] = {"nonuniform_ms": t, "nonuniform_bound_ms": b,
+                                 "nonuniform_uniform_ms": u, "nonuniform_at": label}
+            if name == "quadcopter":
+                log(f"[K.1] uniform 11^6 {entry} {u:.4f} ms against PERF.md's "
+                    f"{K1_UNIFORM_MS[entry]} ms (H100 80GB HBM3, 700 W): "
+                    f"{100 * (u / K1_UNIFORM_MS[entry] - 1):+.1f} %")
+        del ops, uni, v
+        torch.cuda.empty_cache()
+    return errs, record
+
+
+def phase_k1_solves():
+    """K.1 on the main path (counted): dense_vi on tests/test_nonuniform.py's
+    LQ 21^2 tanh grid (9 candidates) and solve_local_patch on the pendulum
+    31^2 patch [8, 22]^2 (a slice of periodic theta nodes, non-uniform by
+    rounding; the faces from a seeded value) on the card against the CPU:
+    within 1e-4 x max|v|, the patch after the same number of sweeps."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
+    from c3sc_tpu_torch.solvers import dense_vi
+    from c3sc_tpu_torch.solvers.local_patch import solve_local_patch
+
+    prob = make_problem("lq")
+    grid = tanh_grid(prob, (21, 21))
+    uc = prob.control_candidates(9)
+    sols = {dev: dense_vi(prob, grid, controls=uc, tol=1e-6, max_outer=4000, device=dev)
+            for dev in (DEVICE, "cpu")}
+    ref = sols["cpu"].v
+    err = float((sols[DEVICE].v.cpu() - ref).abs().max() / ref.abs().max())
+    log(f"[K.1] dense_vi on the LQ 21^2 tanh grid: card against CPU {err:.3e} x max|v| "
+        f"({sols[DEVICE].sweeps} and {sols['cpu'].sweeps} sweeps)")
+    if not err <= PARITY_BAR:
+        raise AssertionError(f"non-uniform dense_vi on the card differs from the CPU: {err:.3e}")
+    prob = make_problem("pendulum")
+    grid = prob.default_grid(31)
+    vdeg = np.random.default_rng(3).uniform(0, 5, grid.shape).astype(np.float32) + 10.0
+    patches = {}
+    for dev in (DEVICE, "cpu"):
+        vt = torch.as_tensor(vdeg, device=dev)
+        patches[dev] = solve_local_patch(prob, grid, lambda p: multilinear_interp(grid, vt, p),
+                                         prob.control_candidates(9), lo=(8, 8), hi=(22, 22),
+                                         tol=1e-5, max_sweeps=400, device=dev)
+    gpu, cpu = patches[DEVICE], patches["cpu"]
+    err = float((gpu.v.cpu() - cpu.v).abs().max() / cpu.v.abs().max())
+    log(f"[K.1] pendulum patch [8, 22]^2 (uniform: {gpu.subgrid.uniform}): card against CPU "
+        f"{err:.3e} x max|v|, sweeps {gpu.sweeps} and {cpu.sweeps}")
+    if gpu.subgrid.uniform or gpu.sweeps != cpu.sweeps or not err <= PARITY_BAR:
+        raise AssertionError("the non-uniform patch on the card differs from the CPU")
+
+
+def _cli(argv, label):
+    """c3sc_tpu_torch.cli.main in this process, with a time and the files it wrote."""
+    from c3sc_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    summary = cli.main(argv)
+    wall = time.perf_counter() - t0
+    outdir = argv[argv.index("--outdir") + 1]
+    log(f"[K.2] {label}: {wall:.1f} s, files {sorted(os.listdir(outdir))}, summary "
+        + json.dumps(summary))
+    for line in open(os.path.join(outdir, "metrics.jsonl")):
+        json.loads(line)
+        if "Infinity" in line or "NaN" in line:
+            raise AssertionError(f"metrics.jsonl is not strict JSON: {label}")
+    solver = summary["solver"]
+    want = CLI_KEYS[solver] | {"solve_wall_s"}
+    if "--rollouts" in argv:
+        want |= {"rollouts", "mean_cost", "rollout_wall_s"}
+        if not np.isfinite(summary["mean_cost"]):
+            raise AssertionError(f"non-finite rollout cost: {label}")
+    if "--save-format" in argv:
+        want |= {"c3tt_file", "c3tt_native"}
+    if set(summary) != want:
+        raise AssertionError(f"{label}: summary keys {sorted(summary)}, the JAX CLI's "
+                             f"{sorted(want)}")
+    if not np.isfinite(summary["residual"]):
+        raise AssertionError(f"non-finite residual: {label}")
+    return summary, wall
+
+
+def phase_k2_cli(full):
+    """K.2: the CLI as users run it (module docstring). ``full``: the
+    documented quadcopter run uncut (2,000 iterations); else 400."""
+    import shutil
+
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.native import have_native, tt_load_binary, tt_to_active
+    from c3sc_tpu_torch.ops.ft import ft_eval, ft_from_tt, ft_grad_eval
+    from c3sc_tpu_torch.solvers import dense_vi
+    from c3sc_tpu_torch.utils import checkpoint as ck
+    from c3sc_tpu_torch.utils import load_solver_state
+
+    shutil.rmtree(K_SCRATCH, ignore_errors=True)
+    d = lambda name: os.path.join(K_SCRATCH, name)  # noqa: E731
+    saves = []
+    real_save = ck.save_fused_carry
+
+    def counting_save(*a, **kw):
+        saves.append(int(a[1].it))
+        return real_save(*a, **kw)
+
+    ck.save_fused_carry = counting_save
+    try:
+        iters = 2000 if full else 400
+        s, wall = _cli(["quadcopter", "--n", "31", "--rmax", "20", "--max-iters", str(iters),
+                        "--rollouts", "256", "--steps", "500", "--outdir", d("quad")],
+                       f"quadcopter 31^6, rmax 20, 81 candidates, <= {iters} iterations")
+        log(f"[K.2] quadcopter: {1e3 * s['wall'] / max(s['iterations'], 1):.2f} ms an "
+            f"iteration (the solver's wall), checkpoints written at iterations {saves}, "
+            f"rollout_wall_s {s['rollout_wall_s']} (256 x 500 steps)")
+        if not saves:
+            raise AssertionError("the quadcopter run wrote no checkpoint")
+        s, _ = _cli(["dubins", "--n", "41", "--solver", "dense", "--rollouts", "256", "--steps",
+                     "500", "--outdir", d("dubins")], "dubins 41^3, dense (K1)")
+        prob = make_problem("dubins")
+        direct = dense_vi(prob, prob.default_grid(41), controls=prob.control_candidates(9),
+                          tol=1e-4, device=DEVICE)
+        if not np.array_equal(np.load(d("dubins") + "/vf.npz")["v"], direct.v.cpu().numpy()):
+            raise AssertionError("the CLI's dense vf.npz differs from dense_vi called directly")
+        lq = ["lq", "--n", "21", "--rmax", "8"]
+        s1, _ = _cli(lq + ["--max-iters", "120", "--save-every", "50", "--rollouts", "8",
+                           "--steps", "50", "--outdir", d("lq")], "lq fused run")
+        s2, _ = _cli(lq + ["--max-iters", "200", "--outdir", d("lq_resume"),
+                           "--load", d("lq") + "/solver_state.npz"], "lq --load solver_state.npz")
+        if s2["iterations"] < s1["iterations"]:
+            raise AssertionError("the resumed run did fewer iterations than the first")
+        _cli(lq + ["--max-iters", "150", "--outdir", d("lq_warm"), "--load", d("lq") + "/vf.npz"],
+             "lq --load vf.npz")
+        s4, _ = _cli(lq + ["--max-iters", "150", "--rollouts", "8", "--steps", "50", "--outdir",
+                           d("lq_c3tt"), "--save-format", "c3tt", "--policy-basis", "poly"],
+                     "lq --save-format c3tt --policy-basis poly")
+        active = tt_to_active(load_solver_state(d("lq_c3tt") + "/vf.npz", "cpu")["v"])
+        if not all(np.array_equal(a, b) for a, b in zip(tt_load_binary(s4["c3tt_file"]), active)):
+            raise AssertionError("vf.c3tt does not reload to the active cores")
+        if s4["c3tt_native"] is not have_native():
+            raise AssertionError("the native library is loaded but its C3TT writer failed")
+        log(f"[K.2] vf.c3tt written by the {'native library' if s4['c3tt_native'] else 'numpy'} "
+            "route (the route tt_save_binary returned), reloads to the active cores exactly")
+        _cli(lq + ["--max-iters", "100", "--outdir", d("lq_from_c3tt"), "--load",
+                   s4["c3tt_file"]], "lq --load vf.c3tt")
+        _cli(["pendulum", "--n", "21", "--rmax", "8", "--max-iters", "150", "--rollouts", "8",
+              "--steps", "50", "--policy-basis", "poly", "--outdir", d("pend_poly")],
+             "pendulum --policy-basis poly (a periodic dim)")
+        pgrid = make_problem("pendulum").default_grid(21)
+        ft = ft_from_tt(load_solver_state(d("pend_poly") + "/vf.npz", DEVICE)["v"], pgrid)
+        lo = torch.tensor(pgrid.lb, device=DEVICE)
+        span = torch.tensor(pgrid.ub, device=DEVICE) - lo
+        pts = lo + 1.5 * span * torch.rand((256, 2), device=DEVICE)   # past the period too
+        ft_eval(ft, pts)
+        ft_grad_eval(ft, pts)
+        _, syncs = count_syncs(lambda: (ft_eval(ft, pts), ft_grad_eval(ft, pts)))
+        log(f"[K.2] ft_eval + ft_grad_eval on 256 pendulum points (the poly policy's value "
+            f"and gradient, periodic theta): {syncs} host syncs")
+        if syncs:
+            raise AssertionError("the poly policy's value function syncs with the host")
+        _cli(lq + ["--solver", "tt", "--max-iters", "30", "--outdir", d("lq_tt")], "lq --solver tt")
+        _cli(lq + ["--solver", "pi", "--max-iters", "3", "--outdir", d("lq_pi")], "lq --solver pi")
+    finally:
+        ck.save_fused_carry = real_save
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "c3sc_tpu_torch.cli", "lq", "--n", "21",
+                          "--solver", "dense", "--outdir", d("lq_module")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m c3sc_tpu_torch.cli failed:\n{out.stderr[-3000:]}")
+    log(f"[K.2] python -m c3sc_tpu_torch.cli lq --n 21 --solver dense: "
+        f"{time.perf_counter() - t0:.1f} s, {out.stdout.strip().splitlines()[-1]}")
+
+
+def _builder_lq():
+    """tests/test_control_api.py's LQ builder with batched callables."""
+    from c3sc_tpu_torch.control import C3Control
+    from c3sc_tpu_torch.device import const_tensor
+    from c3sc_tpu_torch.models import lqr_solution
+
+    P, c, _ = lqr_solution(sigma=1.0, beta=1.0)
+
+    def diff(x, u):   # constants uploaded once: a captured iteration copies nothing
+        L = const_tensor([[0.0], [1.0]], x.dtype, x.device)
+        return L.expand(*torch.broadcast_shapes(x.shape[:-1], u.shape[:-1]), 2, 1)
+
+    def psi(x):
+        return torch.einsum("...i,ij,...j->...", x, const_tensor(P, x.dtype, x.device), x) + c
+
+    ctrl = (C3Control(dx=2, du=1, dw=1, lb=[-2, -2], ub=[2, 2], beta=1.0, ulb=[-6], uub=[6],
+                      name="lq_builder")
+            .add_drift(lambda x, u: torch.stack(torch.broadcast_tensors(x[..., 1], u[..., 0]), -1))
+            .add_diff(diff)
+            .add_stagecost(lambda x, u: (x * x).sum(-1) + (u * u).sum(-1))
+            .add_boundcost(psi)
+            .set_external_boundary(0, "absorb")
+            .set_external_boundary(1, "absorb"))
+    return ctrl, P, c
+
+
+def phase_k3_builder():
+    """K.3: the C3Control builder on the card. tests/test_control_api.py's
+    Riccati bar (31^2, rmax 10, 15 candidates, tol 2e-4, <= 1,500
+    iterations, graphed: interior rel < 0.08), then its closed-loop bar on
+    a 21^2 rmax-8 solve: 128 rollouts of 400 steps at dt 0.01 from
+    default_rng(7)'s x0, the same noise (torch.Generator, seed 11) for every
+    policy: poly + 8 refine steps realizes a cost at most lerp's."""
+    from c3sc_tpu_torch.ops.tt import tt_gather_eval
+    from c3sc_tpu_torch.sim import rollout
+
+    ctrl, P, c = _builder_lq()
+    sol, wall = _synced_s(lambda: ctrl.vi_solve(ngrid=31, rmax=10, n_controls=15, tol=2e-4,
+                                                max_iters=1500, seed=0, device=DEVICE,
+                                                cuda_graph=True))
+    grid = sol.grid
+    idx = grid.node_indices(DEVICE)
+    x = grid.index_to_state(idx).cpu().numpy()
+    v = tt_gather_eval(sol.v, idx).cpu().numpy()
+    v_true = np.einsum("ni,ij,nj->n", x, P, x) + c
+    interior = np.all(np.abs(x) < 1.0, axis=-1)
+    rel = np.abs(v - v_true)[interior].max() / np.abs(v_true[interior]).max()
+    log(f"[K.3] builder vi_solve 31^2 rmax 10: {sol.iterations} iterations in {wall:.1f} s, "
+        f"interior rel error against Riccati {rel:.4f} (bar 0.08)")
+    if not rel < 0.08:
+        raise AssertionError(f"builder VI against Riccati: {rel:.3f}")
+    sol = ctrl.vi_solve(ngrid=21, rmax=8, n_controls=9, tol=2e-4, max_iters=800, seed=0,
+                        device=DEVICE, cuda_graph=True)
+    prob = ctrl.problem()
+    x0 = torch.as_tensor(np.random.default_rng(7).uniform(-1.2, 1.2, (128, 2)),
+                         dtype=torch.float32, device=DEVICE)
+    noise = torch.randn((400, 128, 1), generator=torch.Generator(device=DEVICE).manual_seed(11),
+                        device=DEVICE)
+
+    def realized(**kw):
+        pol = ctrl.implicit_policy(sol, n_controls=9, **kw)
+        with torch.no_grad():
+            return float(rollout(prob, sol.grid, pol, x0, 0.01, 400, noise=noise).cost.mean())
+
+    c_lerp, c_pref = realized(), realized(basis="poly", refine_steps=8)
+    log(f"[K.3] closed loops (128 x 400, shared noise): lerp {c_lerp:.4f}, poly + 8 refine "
+        f"steps {c_pref:.4f}")
+    if not c_pref <= c_lerp:
+        raise AssertionError(f"poly + refine realized {c_pref:.4f} > lerp {c_lerp:.4f}")
+
+
+def phase_k_entry_points(full=False):
+    """Phase K on the main path (counted): K.1's solves, K.2, K.3. Returns
+    the K1 launches of K.1's solves, all of them on non-uniform grids (the
+    counts are 0 when the phase starts)."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    marks = [time.perf_counter()]
+    phase_k1_solves()
+    nonuniform = db.launch_counts()
+    log(f"[K.1] K1 launches on non-uniform grids (dense_vi and the patch): {nonuniform}")
+    marks.append(time.perf_counter())
+    for fn in (lambda: phase_k2_cli(full), phase_k3_builder):
+        fn()
+        marks.append(time.perf_counter())
+    log("[timing] phase K: " + ", ".join(f"{n} {b - a:.1f} s" for n, a, b in
+                                         zip(("K.1 solves", "K.2", "K.3"), marks, marks[1:])))
+    return nonuniform
+
+
 def _entries():
     """K1's four entries by name: the wrappers that count their launches."""
     from c3sc_tpu_torch.ops import dense_backup as db
@@ -2375,12 +2748,24 @@ def main_solvers_only():
     return 0
 
 
-USAGE = "usage: chip_smoke.py [--phases F | G | I | J | H [--seed N]]"
+def main_entry_points_only():
+    """Phases A, B and K at full depth (the documented quadcopter CLI run
+    uncut)."""
+    phase_a_environment()
+    phase_b_build()
+    t0 = time.perf_counter()
+    phase_k1_kernels()
+    counted("K", lambda: phase_k_entry_points(full=True))
+    log(f"[timing] phase K {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+USAGE = "usage: chip_smoke.py [--phases F | G | I | J | K | H [--seed N]]"
 
 
 def main():
     modes = {"F": main_fused_only, "G": main_control_only, "H": main_flagship_only,
-             "I": main_models_only, "J": main_solvers_only}
+             "I": main_models_only, "J": main_solvers_only, "K": main_entry_points_only}
     args = sys.argv[1:]
     if args:
         if len(args) not in (2, 4) or args[0] != "--phases" or args[1] not in modes:
@@ -2420,15 +2805,21 @@ def main():
     marks.append(("I", time.perf_counter()))
     counted("J", phase_j_solvers, totals=totals)
     marks.append(("J", time.perf_counter()))
-    errs = {name: max(errs.get(name, 0.0), i_errs[name]) for name in KERNELS}
+    k_errs, nonuniform = phase_k1_kernels()
+    nu_launches = counted("K", phase_k_entry_points, totals=totals)
+    marks.append(("K", time.perf_counter()))
+    errs = {name: max(errs.get(name, 0.0), i_errs[name], k_errs[name]) for name in KERNELS}
     launches = totals
-    log(f"[J] K1 launches from phase D through J: {launches}")
+    log(f"[K] K1 launches from phase D through K: {launches}")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:]))
         + f", total {time.perf_counter() - marks[0][1]:.1f}")
     # times and bounds of the structured entries at the 11^6 quadcopter with 25
     # candidates, of the general ones at the 41^4 glider with 9; no single
-    # PyTorch call computes any of these sweeps, so there is no library time
+    # PyTorch call computes any of these sweeps, so there is no library time.
+    # The nonuniform_* keys: K.1's times on tanh grids (the quadcopter 11^6, the
+    # glider (15, 11, 11, 11)) beside the uniform grid of the same shape, and
+    # the launches of K.1's non-uniform solves on the main path
     at = {"dense_backup": (times[11], bounds[11]), "dense_evaluate": (times[11], bounds[11]),
           "dense_backup_general": (gen_times, gen_bounds),
           "dense_evaluate_general": (gen_times, gen_bounds)}
@@ -2437,7 +2828,7 @@ def main():
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": at[name][0][key + "_kernel"], "plain_ms": at[name][0][key + "_plain"],
          "bound_ms": at[name][1][name]["bound_ms"], "bound_by": at[name][1][name]["bound_by"],
-         "library_ms": None}
+         "library_ms": None, **nonuniform[name], "nonuniform_launches": nu_launches[name]}
         for name, key, replaces in (
             ("dense_backup", "backup", "c3sc_tpu/ops/pallas_dense.py:107"),
             ("dense_evaluate", "evaluate", "c3sc_tpu/solvers/dense.py:122"),

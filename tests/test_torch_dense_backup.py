@@ -103,10 +103,12 @@ def test_cpu_wrapper_is_plain_version_and_launches_nothing():
 
 
 def test_kernel_refuses_what_it_cannot_run():
-    """No quiet fallback: a non-uniform grid raises before any launch. A
-    problem without the structure declarations is no longer refused: its
-    operands are the general entries' (per-candidate drift, variances and
-    cost), with their own launch arguments."""
+    """No quiet fallback: operands whose spacing tables do not match their
+    grid raise before any launch. A non-uniform grid is no longer refused:
+    its operands carry the spacing tables, whose pointer ends the grid
+    arguments. A problem without the structure declarations is no longer
+    refused either: its operands are the general entries' (per-candidate
+    drift, variances and cost), with their own launch arguments."""
     tp = tm.make_problem("pendulum")
     uc = tp.control_candidates(5)
     v = torch.zeros(21 * 21)
@@ -117,8 +119,12 @@ def test_kernel_refuses_what_it_cannot_run():
     assert ops.general and ptrs[0] == ops.fc_k.data_ptr() and scalars[:2] == (2, len(uc))
     nodes = [np.linspace(-np.pi, np.pi, 21, endpoint=False), np.linspace(-8, 8, 21) ** 3 / 64]
     grid = Grid.create(tp.lb, tp.ub, (21, 21), (True, False), nodes=nodes)
-    with pytest.raises(NotImplementedError, match="uniform"):
-        db._kernel_inputs(db.make_dense_operands(tp, grid, uc, "cpu"), v)
+    nu_ops = db.make_dense_operands(tp, grid, uc, "cpu")
+    _, nu_scalars = db._kernel_inputs(nu_ops, v)
+    assert nu_ops.nu_k.shape == (42, db.SPACING_STRIDE)
+    assert nu_scalars[-2] == nu_ops.nu_k.data_ptr() and scalars[-2] == 0
+    with pytest.raises(ValueError, match="spacing tables"):
+        db._kernel_inputs(dataclasses.replace(nu_ops, nu_k=None), v)
     # and the plain version still serves both on the CPU
     assert torch.isfinite(db.dense_backup(ops, v.reshape(21, 21))[0]).all()
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: K1 (csrc/dense_backup.cu) against its
-plain PyTorch version (its structured entries and its general entries), the
-refusals of its wrapper, and dense_vi running through it. Every test here
+plain PyTorch version (its structured entries and its general entries, on
+uniform and non-uniform grids), the refusals of its wrapper, and dense_vi
+and the local patch running through it. Every test here
 needs a CUDA device and skips without one.
 
 Imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_testing import QUAD, TIE, V5, random_v
+from torch_port_testing import QUAD, TIE, V5, random_v, tanh_node_sets
 from c3sc_tpu_torch import models as tm
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 from c3sc_tpu_torch.convert import value_from_npz
@@ -132,7 +133,8 @@ def test_improve_and_evaluate_under_its_argmin_are_bit_equal(cuda, n):
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
     """What no kernel takes raises; a problem without the declarations runs
-    the general entry, never the plain version."""
+    the general entry, and a non-uniform grid the non-uniform kernel, never
+    the plain version."""
     tp = tm.make_problem("pendulum")
     uc = tp.control_candidates(5)
     v = torch.zeros((21, 21), device=cuda)
@@ -147,8 +149,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         db.dense_backup_general(db.make_dense_operands(tp, tp.default_grid(21), uc, cuda), v)
     nodes = [np.linspace(-np.pi, np.pi, 21, endpoint=False), np.linspace(-8, 8, 21) ** 3 / 64]
     grid = Grid.create(tp.lb, tp.ub, (21, 21), (True, False), nodes=nodes)
-    with pytest.raises(NotImplementedError):
-        db.dense_backup(db.make_dense_operands(tp, grid, uc, cuda), v)
+    before = db.dense_backup.launches
+    assert torch.isfinite(db.dense_backup(db.make_dense_operands(tp, grid, uc, cuda), v)[0]).all()
+    assert db.dense_backup.launches == before + 1   # non-uniform grids launch too
     ops = db.make_dense_operands(tp, tp.default_grid(21), uc, cuda)
     with pytest.raises(ValueError):
         db.dense_backup(ops, v.double())
@@ -221,16 +224,66 @@ def test_local_patch_solve_runs_through_the_kernel(cuda):
     assert (gpu.v.cpu() - cpu.v).abs().max() <= 1e-4 * cpu.v.abs().max()
 
 
-def test_nonuniform_patch_on_cuda_raises(cuda):
+def test_nonuniform_patch_on_cuda_matches_cpu(cuda):
     """A pendulum patch (a slice of the periodic theta nodes is not uniform)
-    has no kernel: on CUDA the solve raises instead of falling back."""
+    runs K1's non-uniform stencil on the card: against the same solve on the
+    CPU's plain sweep every sweep launches the kernel, the patches agree
+    within 1e-4 x max|v| and stop after the same number of sweeps."""
+    from c3sc_tpu_torch.ops.interp import multilinear_interp
     from c3sc_tpu_torch.solvers.local_patch import solve_local_patch
 
     tp = tm.make_problem("pendulum")
     grid = tp.default_grid(31)
-    with pytest.raises(NotImplementedError):
-        solve_local_patch(tp, grid, lambda p: torch.zeros(p.shape[0], device=p.device),
-                          tp.control_candidates(9), lo=(8, 8), hi=(22, 22), device=cuda)
+    vdeg = random_v(grid.shape, seed=3) + 10.0
+    patches = {}
+    for dev in ("cpu", cuda):
+        v = torch.as_tensor(vdeg, device=dev)
+        before = db.dense_backup.launches
+        patches[str(dev)] = solve_local_patch(tp, grid, lambda p: multilinear_interp(grid, v, p),
+                                              tp.control_candidates(9), lo=(8, 8), hi=(22, 22),
+                                              tol=1e-5, max_sweeps=400, device=dev)
+        launched = db.dense_backup.launches - before
+        assert launched == (patches[str(dev)].sweeps if str(dev) != "cpu" else 0)
+    cpu, gpu = patches["cpu"], patches[str(cuda)]
+    assert not gpu.subgrid.uniform and gpu.sweeps == cpu.sweeps
+    assert (gpu.v.cpu() - cpu.v).abs().max() <= 1e-4 * cpu.v.abs().max()
+
+
+@pytest.mark.parametrize("name,shape,n_cand", [("lq", (21, 21), 9),
+                                               ("glider", (7, 5, 5, 6), 3)])
+def test_every_entry_on_a_nonuniform_grid(cuda, name, shape, n_cand):
+    """Each K1 entry on a tanh grid against its plain version: 2e-4 (the
+    Pallas test's bar) with argmins equal off near-ties; the evaluate under
+    the improve's policy bit-equal to the improve, the policy bit-equal to
+    gather_policy, and 64-bit indices bit-equal to 32-bit. LQ takes the
+    structured entries, the glider (drift undeclared) the general ones."""
+    tp = tm.make_problem(name)
+    periodic = tp.default_grid(shape).periodic
+    grid = Grid.create(tp.lb, tp.ub, shape, periodic,
+                       nodes=tanh_node_sets(tp.lb, tp.ub, shape, periodic))
+    assert not grid.uniform
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
+    improve, evaluate = ((db.dense_backup_general, db.dense_evaluate_general) if ops.general
+                         else (db.dense_backup, db.dense_evaluate))
+    v = _random_v(grid.shape, cuda)
+    counts = (improve.launches, evaluate.launches)
+    got, pol = db.dense_backup(ops, v, with_policy=True)
+    want, wbest = db.dense_backup_reference(ops, v)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    top2 = torch.topk(db.candidate_rhs(ops, v), 2, dim=0, largest=False).values
+    near_tie = (top2[1] - top2[0]) <= TIE * top2[0].abs().clamp(min=1.0)
+    assert not torch.any((pol.best != wbest) & ~near_tie)
+    gathered = db.gather_policy(ops, pol.best)
+    for a, b in ((pol.fpol_k, gathered.fpol_k), (pol.s2pol_k, gathered.s2pol_k),
+                 (pol.gpol, gathered.gpol)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(db.dense_evaluate(ops, v, pol), got)
+    torch.testing.assert_close(db.dense_evaluate(ops, v, db.gather_policy(ops, wbest)),
+                               db.dense_evaluate_reference(ops, v, wbest), rtol=2e-4, atol=2e-4)
+    wide, wpol = db.dense_backup(ops, v, with_policy=True, _wide_index=True)
+    assert torch.equal(wide, got) and torch.equal(wpol.best, pol.best)
+    assert torch.equal(db.dense_evaluate(ops, v, pol, _wide_index=True), got)
+    assert (improve.launches, evaluate.launches) == (counts[0] + 2, counts[1] + 3)
 
 
 def test_receding_horizon_replans_as_one_graph(cuda):

@@ -25,7 +25,7 @@ Bars:
     the shapes, six latencies, the closed loop halves |x_0| and costs are
     finite; its final state within 0.05 of JAX's closed loop under the same
     noise;
-  - ``checkpoint_path`` / ``resume_from`` raise NotImplementedError.
+  - ``checkpoint_path`` writes the file ``resume_from`` continues from.
 """
 
 import jax
@@ -114,10 +114,20 @@ def test_ttvi_refine_steps_matches_dense():
 
 
 @pytest.mark.parametrize("kw", [dict(checkpoint_path="x.npz"), dict(resume_from="x.npz")])
-def test_ttvi_checkpoint_not_ported(kw):
+def test_ttvi_checkpoint_not_ported(kw, tmp_path, monkeypatch):
+    """Ported since this test was written (it held the raise): one
+    iteration with ``checkpoint_path`` writes the file, and ``resume_from``
+    continues from it at the next iteration (tests/test_torch_resume.py
+    holds the resume bit for bit)."""
+    from c3sc_tpu_torch.utils import load_solver_state
+
+    monkeypatch.chdir(tmp_path)
     prob = tm.make_lq_problem()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tt_vi(prob, prob.default_grid(11), max_iters=1, device="cpu", **kw)
+    grid = prob.default_grid(11)
+    tt_vi(prob, grid, max_iters=1, device="cpu", checkpoint_path="x.npz", checkpoint_every=1)
+    assert load_solver_state("x.npz", "cpu")["iteration"] == 0
+    if "resume_from" in kw:
+        assert tt_vi(prob, grid, max_iters=2, device="cpu", **kw).iterations == 2
 
 
 def test_policy_kernels_match_jax():

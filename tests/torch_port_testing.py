@@ -66,3 +66,17 @@ def random_tt_numpy(shape, ranks, rmax, seed=0):
         c[:rk[k], :, :rk[k + 1]] = rng.standard_normal((rk[k], n, rk[k + 1])) / np.sqrt(rmax)
         cores.append(c)
     return cores, np.asarray(rk, np.int32)
+
+
+def tanh_nodes(lb, ub, n, sharp=1.5):
+    """tests/test_nonuniform.py's nodes: n of them on [lb, ub], denser near
+    the centre."""
+    t = np.tanh(sharp * np.linspace(-1, 1, n)) / np.tanh(sharp)
+    return lb + (t + 1) * 0.5 * (ub - lb)
+
+
+def tanh_node_sets(lb, ub, shape, periodic):
+    """Per-dim node arrays: tanh_nodes on bounded dims, the uniform periodic
+    nodes lb + i (ub - lb) / n on periodic ones."""
+    return [lo + np.arange(n) * ((hi - lo) / n) if p else tanh_nodes(lo, hi, n)
+            for lo, hi, n, p in zip(lb, ub, shape, periodic)]
