@@ -9,8 +9,8 @@ in float32. Entry points run on the CUDA device (``default_device()``)
 unless the caller passes ``device="cpu"``; functions that take tensors
 follow their inputs.
 
-Ported (every module of the JAX package but ``parallel/``, and the JAX
-package's persistent compile cache, which has no counterpart):
+Ported (every module of the JAX package; its persistent compile cache has
+no counterpart):
   grids.py            tensor-product grids (uniform and non-uniform)
   models/             ControlProblem + the six systems (LQ, pendulum, Dubins, glider,
                       the 6D and 7D quadcopters)
@@ -47,6 +47,8 @@ package's persistent compile cache, which has no counterpart):
   convert.py          numpy carriers of state from the JAX package
   device.py           the default device of every ``device=None``; constants kept on it
   seeds.py            the seeds of sub-solves (an int, or one seed a sub-solve)
+  parallel/           device meshes over torch.distributed (NCCL on CUDA, gloo on
+                      the CPU), the sharded backup and rollout, batched solves
 
 This package never imports ``jax`` or ``c3sc_tpu``.
 """

@@ -37,8 +37,11 @@ sub-solves' seeds (``c3sc_tpu_torch.seeds``). A JAX key ``k`` reaches
 Checkpoints (``fused_tt_vi(checkpoint_path=, resume_from=)``) are the JAX
 package's files (``utils/checkpoint.py``).
 
-Not ported yet (each raises ``NotImplementedError``): ``mesh=``,
-``_cholqr2``.
+``mesh=`` shards the fiber block of every core-step over a
+``torch.distributed`` device mesh (``c3sc_tpu_torch.parallel``; see
+``make_fiber_backup``); cores and index sets stay replicated.
+
+Not ported (raises ``NotImplementedError``): ``_cholqr2``.
 """
 
 from __future__ import annotations
@@ -114,6 +117,15 @@ class FusedCarry(NamedTuple):
 
 def _not_ported(what: str, waits_for: str):
     raise NotImplementedError(f"{what} is not ported yet: it waits for {waits_for}")
+
+
+def _solve_device(device, mesh) -> torch.device:
+    """``device`` resolved; None with a mesh is the mesh's device."""
+    if device is None and mesh is not None:
+        from c3sc_tpu_torch.parallel.mesh import mesh_device
+
+        return mesh_device(mesh)
+    return resolve_device(device)
 
 
 def _cholqr2(C):
@@ -526,7 +538,7 @@ def _scrub(val, vb):
 def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
                       dtype=torch.float32, debug_identity: bool = False,
                       refine_steps: int = 0, refine_method: str = "pgd",
-                      base: TT | None = None):
+                      base: TT | None = None, mesh=None):
     """Block K2 of a core-step: the Bellman backup on the structured fiber
     block of core k. ``uc [C, du]`` is the candidate set as a tensor on the
     solve's device. ``refine_steps > 0`` polishes every node's brute-force
@@ -540,6 +552,18 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
     base's structured evaluator is built at the base's own padding and
     shares the correction's index sets; its cores are moved to the solve's
     device once, here, and live as long as the returned function.
+
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) on the kind of
+    ``uc``'s device. Each rank then backs up the rows of the block
+    ``[R * n_k * R]`` that its ``'fibers'`` coordinate owns (the block padded
+    to a multiple of the axis size by repeating its last row) against the
+    candidates its ``'ctrl'`` coordinate owns (padded by repeating the last
+    one, which cannot change a min); a MIN over ``'ctrl'`` and a gather over
+    ``'fibers'`` give every rank the whole block. With ``refine_steps > 0``
+    the candidates' RHS is gathered over ``'ctrl'`` instead, so that
+    ``first_argmin`` sees all C in order. These are the constraints the JAX
+    package puts on the block (nodes over ``'fibers'``, the per-candidate RHS
+    over ``'ctrl'``), and the collectives GSPMD inserts for them.
 
     Returns fn(cores, ranks, k, left_k [R, d], right_k1 [R, d]) -> [R, n_k, R]:
     the backed-up value at every node of I_k x grid_k x J_{k+1}, with terminal
@@ -566,6 +590,25 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
 
     struct_eval = [make_structured_fiber_eval(grid, k, R, dtype) for k in range(d)]
     eye_d = torch.eye(d, dtype=torch.bool, device=device)
+    n_uc = uc.shape[0]
+    uc_own = uc
+    if mesh is not None:
+        from c3sc_tpu_torch.parallel.mesh import (axis_index, axis_size, check_device,
+                                                  gather_rows, min_over)
+
+        check_device(mesh, device)
+
+        def own_rows(n, axis):
+            """This rank's block of n rows along ``axis``, padded by repeating
+            the last row: a slice, or an index tensor where it pads."""
+            m = -(-n // axis_size(mesh, axis))
+            lo = axis_index(mesh, axis) * m
+            if lo + m <= n:
+                return slice(lo, lo + m)
+            return torch.clamp(torch.arange(lo, lo + m, device=device), max=n - 1)
+
+        uc_own = uc[own_rows(n_uc, "ctrl")]
+        block_rows = [own_rows(R * n * R, "fibers") for n in shape]
 
     def _eval_fibers(cores, ranks, k, left_k, right_k1):
         """Bellman backup on the structured fiber block via the amortized
@@ -583,8 +626,14 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
                 vpb, vmb, base_v0 = struct_eval_base[k](base_cores, left_k, right_k1)
                 vp, vm = vp + vpb, vm + vmb
             B = R * n * R
-            x = grid.index_to_state(flat_idx).to(dtype)          # [B, d]
             vn = torch.stack([vp, vm], dim=0).reshape(2, d, B).permute(2, 0, 1)
+            if mesh is not None:
+                # this rank's rows of the block from here to the gather
+                flat_idx, vn = flat_idx[block_rows[k]], vn[block_rows[k]]
+                if base is not None:
+                    base_v0 = base_v0.reshape(-1)[block_rows[k]]
+                B = flat_idx.shape[0]
+            x = grid.index_to_state(flat_idx).to(dtype)          # [B, d]
             if vb is not None:
                 vn = torch.clamp(vn, vb[0], vb[1])
             # pin neighbor values at terminal neighbor nodes — ALL 2d
@@ -601,11 +650,15 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
             tvn = tvn.reshape(2, d, B).permute(2, 0, 1).to(dtype)
             vn = torch.where(tmn, tvn, vn)
             # all-candidates stencil + cost: one drift contraction for all C
-            pp, pm, dtt = mca.transition_all_controls(problem, grid, x, uc)
-            g = mca.stage_cost_all(problem, x, uc)                       # [C, B]
+            pp, pm, dtt = mca.transition_all_controls(problem, grid, x, uc_own)
+            g = mca.stage_cost_all(problem, x, uc_own)                   # [C, B]
             expect = torch.sum(pp * vn[None, :, 0] + pm * vn[None, :, 1], dim=-1)
             rhs = g * dtt + torch.exp(-problem.beta * dtt) * expect
+            if mesh is not None and refine_steps > 0:
+                rhs = gather_rows(rhs, mesh, "ctrl")[:n_uc]
             val = torch.min(rhs, dim=0).values
+            if mesh is not None and refine_steps == 0:
+                val = min_over(val, mesh, "ctrl")
             if refine_steps > 0:
                 u0 = uc[first_argmin(rhs, 0)]                            # [B, du]
                 _, val = refine_controls(problem, grid, x, vn, u0, val, refine_steps,
@@ -626,6 +679,8 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
                 # minus the frozen base at the block nodes (centre values of
                 # the structured evaluator, not a gather)
                 val = val - base_v0.reshape(-1)
+            if mesh is not None:
+                val = gather_rows(val, mesh, "fibers")[:R * n * R]
             return val.to(dtype).reshape(R, n, R)
 
     return _eval_fibers
@@ -719,14 +774,20 @@ def make_fused_vi(
     loop is active the device count advances by one per iteration, and once
     it is inactive every result is discarded), so no iteration reads it.
 
-    Not ported yet: ``mesh=``.
+    ``mesh``: a ``torch.distributed`` ``DeviceMesh`` (``parallel.make_mesh``)
+    of the kind of ``device`` (None: the mesh's device). The Bellman fiber
+    block, the solve's dominant compute, is then split over its ranks: nodes
+    over ``'fibers'``, the per-candidate RHS over ``'ctrl'`` where the mesh
+    has that axis (``make_fiber_backup``). Every rank fits the whole gathered block with
+    the same library, so cores, index sets and ranks stay replicated and the
+    ranks in lockstep; every rank runs the same solve and calls it the same
+    number of times. The collectives are captured in the iteration's graph
+    under ``cuda_graph=True``.
     """
-    if mesh is not None:
-        _not_ported("mesh=", "a multi-GPU fiber sharding (parallel/)")
     if target_mode not in ("self", "frozen"):
         raise ValueError(f"target_mode must be 'self' or 'frozen', got {target_mode!r}")
     check_refine_method(refine_method)
-    device = resolve_device(device)
+    device = _solve_device(device, mesh)
     if sync_free is None:
         sync_free = device.type == "cuda"
     if cuda_graph and (device.type != "cuda" or probe_rollouts > 0 or not sync_free):
@@ -796,7 +857,7 @@ def make_fused_vi(
             return traj.cost.mean().to(dtype)
 
     _eval_fibers = make_fiber_backup(problem, grid, uc, R, dtype, debug_identity,
-                                     refine_steps, refine_method, base)
+                                     refine_steps, refine_method, base, mesh)
 
     def fit_core(qe, rows_prev, r_new, r_prev_fit, cap, s_prev, in_warmup, frozen):
         """Pivot rows + core for the selected scheme; returns (rows, G,
@@ -1329,11 +1390,15 @@ def fused_tt_vi(
     stopping state anyway, and a resumed carry is copied into the graph's
     static inputs.
 
-    Not ported yet: ``mesh=``.
+    ``mesh`` as in ``make_fused_vi``: every rank runs this same call, and
+    the host reads between chunks see the same replicated state on every
+    rank, so the ranks take the same restarts and stop together. With a
+    checkpoint every rank writes its own carry: give each rank its own
+    ``checkpoint_path``. ``device=None`` with a mesh is the mesh's device.
     """
     if controls is None:
         controls = problem.control_candidates(n_controls)
-    device = resolve_device(device)
+    device = _solve_device(device, mesh)
     seeds = np.random.default_rng(int(seed))      # restarts draw their seeds here
 
     def build(R):

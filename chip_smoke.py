@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the c3sc_tpu_torch dense Bellman path, the fused TT value
 iteration, the receding-horizon control path, the flagship accuracy stack,
-the remaining models, the remaining solvers and the users' entry points
-(the CLI, the C3Control builder) once on one NVIDIA GPU.
+the remaining models, the remaining solvers, the users' entry points
+(the CLI, the C3Control builder) and the parallel paths (device meshes,
+the sharded backup and rollout, batched solves) once on one NVIDIA GPU.
 
     python3 chip_smoke.py              every phase
     python3 chip_smoke.py --phases F   phases A, B, D at 9^6 and F (while developing)
@@ -17,6 +18,7 @@ the remaining models, the remaining solvers and the users' entry points
     python3 chip_smoke.py --phases J   phases A, B, D at 9^6 and J at its full depth
     python3 chip_smoke.py --phases K   phases A, B and K at full depth (the documented
                                        quadcopter CLI run uncut)
+    python3 chip_smoke.py --phases L   phases A, B, D at 9^6, F.2 and L
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -180,9 +182,24 @@ non-zero, with no result line):
      K.3 the C3Control builder: tests/test_control_api.py's Riccati bar (31^2,
          rmax 10, rel < 0.08) and its closed loops (poly + refine realizes at
          most lerp's cost under the same noise)
+  L  c3sc_tpu_torch.parallel on a world of one rank under NCCL (make_mesh()):
+     L.1 the (1, 1) sharded backup: quadcopter 9^6, 16 candidates, 4,096
+         nodes on F.2's TT, bit-equal to make_bellman_kernel; both times
+     L.2 make_fused_vi(mesh=) at F.3's configuration (31^6, rmax 16, 25
+         candidates), graphed, 50 iterations with and without the mesh from
+         one warm carry, in turns: ms/iteration of each; ranks equal, values
+         within 1e-5 x max|v|; 0 host syncs in 3 graphed iterations and in
+         an eager mesh iteration, and the collectives the latter issues
+     L.3 make_batch_stepper at bench_scaling.py's configuration (pendulum
+         31^2, 9 candidates, rmax 12, tol 0): 8 instances in turn through
+         one captured iteration against one instance's graph, instance-iterations/s and peak
+         memory; instances 0 and 1 bit-equal to their graphed single solves
+     L.4 the sharded 256 x 400 rollout on F.2's value, bit-equal to rollout
+         under common noise; then from per-block seeds
 K1's launch counts (all four entries) are set to 0 before each of D+E, F,
-G, H, I, J and K and read after it (each must launch the structured entries, H
-the improve entry, I all four); the kernels line sums them. Then one JSON
+G, H, I, J, K and L and read after it (each of D+E to K must launch the
+structured entries, H the improve entry, I all four; L reaches none); the
+kernels line sums them. Then one JSON
 line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -2660,6 +2677,205 @@ def phase_k_entry_points(full=False):
     return nonuniform
 
 
+# ---- phase L: parallel/ on a world of one ----------------------------------------------
+
+def _profiled_collectives(fn):
+    """fn() under torch.profiler; returns (its result, the host syncs in it
+    less an empty call's, and the collectives it issued by name: the
+    dispatcher's ``c10d::`` ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, base = _profiled_syncs(lambda: None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ops = {}
+    for e in cpu:
+        if e.name.startswith("c10d::"):
+            ops[e.name] = ops.get(e.name, 0) + 1
+    return out, sum(e.name in SYNC_NAMES for e in cpu) - base, ops
+
+
+def phase_l1_sharded_backup(mesh, v_tt, n_nodes=4096):
+    """The (1, 1) sharded backup of 4,096 nodes of the 9^6 quadcopter with 16
+    candidates, on F.2's TT, against make_bellman_kernel: bit for bit."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.parallel import make_sharded_bellman
+    from c3sc_tpu_torch.solvers.ttvi import make_bellman_kernel
+
+    prob = make_problem("quadcopter", **QUAD)
+    grid = prob.default_grid(tuple(v_tt.shape))
+    controls = prob.control_candidates((8, 2))
+    rng = np.random.default_rng(2)
+    idx = torch.as_tensor(np.stack([rng.integers(0, m, n_nodes) for m in grid.shape], -1),
+                          device=DEVICE)
+    uc = torch.as_tensor(controls, dtype=torch.float32, device=DEVICE)
+    sharded = make_sharded_bellman(prob, grid, mesh)
+    plain = make_bellman_kernel(prob, grid, controls, chunk=n_nodes)
+    got, want = sharded(v_tt, idx, uc), plain(v_tt, idx)
+    diff = (got - want).abs().max().item()
+    ms = {"sharded": cuda_ms(lambda: sharded(v_tt, idx, uc)),
+          "plain": cuda_ms(lambda: plain(v_tt, idx))}
+    log(f"[L.1] sharded backup, mesh {tuple(mesh.shape)}: quadcopter {grid.shape[0]}^6, "
+        f"{len(controls)} candidates, {n_nodes} nodes: max|sharded - make_bellman_kernel| "
+        f"{diff:.3e} (bit-equal {torch.equal(got, want)}); {ms['sharded']:.4f} ms against "
+        f"{ms['plain']:.4f} ms")
+    if not torch.equal(got, want):
+        raise AssertionError(f"the sharded backup differs from make_bellman_kernel by {diff:.3e}")
+
+
+def phase_l2_mesh_iteration(mesh, n=31, rmax=16, iters=50, warm=30, traced=3):
+    """make_fused_vi(mesh=) at F.3's configuration, graphed, against the
+    plain graphed solver from the same warm carry; times in turns (plain,
+    mesh, mesh, plain); host syncs of ``traced`` graphed mesh iterations
+    (a trace holds every kernel of every replay: 8,400 an iteration) and of
+    an eager mesh iteration, and the collectives the eager one issues."""
+    kw = dict(problem_kw={}, tol=0.0, max_iters=10**9)
+    prob, grid, plain = _quad_fused(n, rmax, DEVICE, cuda_graph=True, **kw)
+    _, _, meshed = _quad_fused(n, rmax, DEVICE, cuda_graph=True, mesh=mesh, **kw)
+    carry = plain.step_fn(plain.init_fn(0), warm)
+    outs, walls = {}, {"plain": [], "mesh": []}
+    for label in ("plain", "mesh", "mesh", "plain"):
+        solver = plain if label == "plain" else meshed
+        solver.step_fn(carry, 1)                 # the first mesh call captures its graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[label] = solver.step_fn(carry, iters)
+        torch.cuda.synchronize()
+        walls[label].append(1e3 * (time.perf_counter() - t0) / iters)
+    a, b = outs["mesh"], outs["plain"]
+    scale = b.v_sample.abs().max().item()
+    diff = (a.v_sample - b.v_sample).abs().max().item()
+    same = all(torch.equal(x, y) for x, y in zip(a.cores, b.cores))
+    _, syncs, _ = _profiled_collectives(lambda: meshed.step_fn(carry, traced))
+    _, _, eager = _quad_fused(n, rmax, DEVICE, mesh=mesh, **kw)
+    eager.step_fn(carry, 1)
+    _, eager_syncs, ops = _profiled_collectives(lambda: eager.step_fn(carry, 1))
+    log(f"[L.2] fused {n}^6 rmax {rmax}, 25 candidates, CUDA graph: plain "
+        f"{', '.join(f'{w:.3f}' for w in walls['plain'])} ms/iteration, mesh "
+        f"{tuple(mesh.shape)} {', '.join(f'{w:.3f}' for w in walls['mesh'])} ms/iteration "
+        f"(over {iters} iterations each, in turns); ranks {a.ranks.tolist()} equal "
+        f"{torch.equal(a.ranks, b.ranks)}, max|dv_sample| {diff:.3e} of max|v| {scale:.4g}, "
+        f"cores bit-equal {same}; host syncs: graphed {traced} iterations {syncs}, an eager "
+        f"mesh iteration {eager_syncs}; collectives an eager iteration {ops}")
+    if not torch.equal(a.ranks, b.ranks) or diff > 1e-5 * scale:
+        raise AssertionError(f"the mesh iteration differs from the plain one: {diff:.3e}")
+    if syncs or eager_syncs:
+        raise AssertionError(f"a mesh iteration reads the device on the host: {syncs}, "
+                             f"{eager_syncs}")
+
+
+def phase_l3_batch(mesh, n_inst=8, n=31, rmax=12, iters=100, warm=5):
+    """make_batch_stepper at bench_scaling.py's configuration (pendulum 31^2,
+    9 candidates, rmax 12, tol 0): 8 instances, each in turn through the
+    batch solver's one captured iteration, against one instance's own
+    graph; instances 0 and 1 bit-equal to their single solves."""
+    from c3sc_tpu_torch.models import make_pendulum_problem
+    from c3sc_tpu_torch.parallel.multi_solve import make_batch_stepper, unstack_carry
+    from c3sc_tpu_torch.solvers import make_fused_vi
+
+    prob = make_pendulum_problem()
+    grid = prob.default_grid(n)
+    controls = prob.control_candidates(9)
+    init, step = make_batch_stepper(prob, grid, controls, rmax=rmax, mesh=mesh)
+    _, s_init, s_step, _ = make_fused_vi(prob, grid, controls, rmax=rmax, tol=0.0,
+                                         max_iters=10**9, device=DEVICE, cuda_graph=True)
+
+    def timed(run, start):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = run(start, warm)                   # the capture, then warm replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(out, iters)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    singles = [timed(s_step, s_init(s)) for s in (0, 1)]
+    batch, wall, peak = timed(step, init(list(range(n_inst))))
+    rate_1, rate_n = iters / singles[0][1], n_inst * iters / wall
+    equal = [all(torch.equal(x, y) for fa, fb in zip(c, single) for x, y in
+                 (zip(fa, fb) if isinstance(fa, tuple) else ((fa, fb),)))
+             for c, (single, _, _) in zip(unstack_carry(batch, 0, 2), singles)]
+    log(f"[L.3] make_batch_stepper, pendulum {n}^2 rmax {rmax}, {n_inst} instances in turn "
+        f"(mesh {tuple(mesh.shape)}): {rate_n:.1f} instance-iterations/s "
+        f"({1e3 * wall / iters:.3f} ms an iteration of all {n_inst}) against one instance's graph "
+        f"{rate_1:.1f} iterations/s ({1e3 * singles[0][1] / iters:.3f} ms): "
+        f"{rate_n / rate_1:.3f}x; peak device memory above the start {peak / 2**20:.1f} MiB "
+        f"against {singles[0][2] / 2**20:.1f} MiB; instances 0 and 1 bit-equal to their "
+        f"graphed single solves {equal}")
+    if not all(equal):
+        raise AssertionError(f"batched instances differ from their single solves: {equal}")
+
+
+def phase_l4_rollout(mesh, sol, n_rollouts=256, n_steps=400, dt=0.01):
+    """Phase F.5's rollouts on F.2's value, sharded over 'fibers', against
+    rollout under common noise: bit for bit; then from per-block seeds."""
+    from c3sc_tpu_torch.models import make_problem
+    from c3sc_tpu_torch.ops.tt import tt_lerp_eval
+    from c3sc_tpu_torch.parallel import make_sharded_rollout
+    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+
+    prob = make_problem("quadcopter", **QUAD)
+    grid = prob.default_grid(sol.v.shape)
+    controls = torch.as_tensor(sol.controls, dtype=torch.float32, device=DEVICE)
+    x0, noise = _rollout_inputs(prob, n_rollouts, n_steps)
+    policy = make_implicit_policy(prob, grid, lambda p: tt_lerp_eval(sol.v, grid, p), controls)
+    roll = make_sharded_rollout(prob, grid, mesh, policy, dt, n_steps)
+    out, walls = {}, {}
+    with torch.no_grad():
+        for label, fn in (("sharded", lambda: roll(x0, noise=noise)),
+                          ("rollout", lambda: rollout(prob, grid, policy, x0, dt, n_steps,
+                                                      noise=noise)),
+                          ("seeds", lambda: roll(x0, seeds=list(range(n_rollouts))))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[label] = fn()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+    a, b, s = out["sharded"], out["rollout"], out["seeds"]
+    equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in b._fields)
+    log(f"[L.4] sharded rollouts on F.2's value, mesh {tuple(mesh.shape)}: {n_rollouts} x "
+        f"{n_steps} steps: bit-equal to rollout {equal}, wall {walls['sharded']:.2f} s against "
+        f"{walls['rollout']:.2f} s; from seeds: mean cost {s.cost.mean().item():.4f}, survival "
+        f"{100 * s.alive[-1].float().mean().item():.2f}%, wall {walls['seeds']:.2f} s")
+    if not equal:
+        raise AssertionError("the sharded rollout differs from rollout under common noise")
+    if tuple(s.xs.shape) != (n_steps + 1, n_rollouts, prob.dx) or \
+            not torch.isfinite(s.xs).all() or not torch.isfinite(s.cost).all():
+        raise AssertionError("the seeded sharded rollout: bad trajectory")
+
+
+def phase_l_parallel(sol):
+    """Phase L on a world of one under NCCL: L.1-L.4 (sol: F.2's solution)."""
+    import torch.distributed as dist
+
+    from c3sc_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    log(f"[L] world of one: backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+        f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the card's mesh runs {dist.get_backend()}, not NCCL")
+    marks = [time.perf_counter()]
+    phase_l1_sharded_backup(mesh, sol.v)
+    marks.append(time.perf_counter())
+    phase_l2_mesh_iteration(mesh)
+    marks.append(time.perf_counter())
+    phase_l3_batch(make_mesh(axes=("fibers",)))
+    marks.append(time.perf_counter())
+    phase_l4_rollout(mesh, sol)
+    marks.append(time.perf_counter())
+    dist.destroy_process_group()
+    log("[timing] phase L: " + ", ".join(f"L.{i + 1} {b - a:.1f} s" for i, (a, b) in
+                                         enumerate(zip([t0] + marks[1:-1], marks[1:]))))
+
+
 def _entries():
     """K1's four entries by name: the wrappers that count their launches."""
     from c3sc_tpu_torch.ops import dense_backup as db
@@ -2748,6 +2964,17 @@ def main_solvers_only():
     return 0
 
 
+def main_parallel_only():
+    """Phases A, B, D at 9^6, F.2 (L's TT) and L."""
+    phase_a_environment()
+    phase_b_build()
+    sol, _ = phase_f2_solve(phase_d_solve(sizes=(9,))[9])
+    t0 = time.perf_counter()
+    counted("L", lambda: phase_l_parallel(sol), required=())
+    log(f"[timing] phase L {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main_entry_points_only():
     """Phases A, B and K at full depth (the documented quadcopter CLI run
     uncut)."""
@@ -2760,12 +2987,13 @@ def main_entry_points_only():
     return 0
 
 
-USAGE = "usage: chip_smoke.py [--phases F | G | I | J | K | H [--seed N]]"
+USAGE = "usage: chip_smoke.py [--phases F | G | I | J | K | L | H [--seed N]]"
 
 
 def main():
     modes = {"F": main_fused_only, "G": main_control_only, "H": main_flagship_only,
-             "I": main_models_only, "J": main_solvers_only, "K": main_entry_points_only}
+             "I": main_models_only, "J": main_solvers_only, "K": main_entry_points_only,
+             "L": main_parallel_only}
     args = sys.argv[1:]
     if args:
         if len(args) not in (2, 4) or args[0] != "--phases" or args[1] not in modes:
@@ -2808,9 +3036,12 @@ def main():
     k_errs, nonuniform = phase_k1_kernels()
     nu_launches = counted("K", phase_k_entry_points, totals=totals)
     marks.append(("K", time.perf_counter()))
+    # phase L (parallel/) reaches no K1 entry: its counts are read and logged, none required
+    counted("L", lambda: phase_l_parallel(fused), totals=totals, required=())
+    marks.append(("L", time.perf_counter()))
     errs = {name: max(errs.get(name, 0.0), i_errs[name], k_errs[name]) for name in KERNELS}
     launches = totals
-    log(f"[K] K1 launches from phase D through K: {launches}")
+    log(f"[L] K1 launches from phase D through L: {launches}")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:]))
         + f", total {time.perf_counter() - marks[0][1]:.1f}")

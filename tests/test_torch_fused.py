@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_testing import QUAD, close, port_grid, random_tt_numpy
+from torch_port_testing import QUAD, close, no_process_group, port_grid, random_tt_numpy
 from c3sc_tpu import models as jm
 from c3sc_tpu.ops.tt import TT as JTT
 from c3sc_tpu.solvers import fused as jf
@@ -401,16 +401,25 @@ def test_probe_harvest_runs_and_validates():
     (dict(resume_from="x.npz"), "checkpoint"),
 ])
 def test_options_not_ported_raise(kw, waits_for, tmp_path, monkeypatch):
-    """``mesh=`` raises until the multi-GPU fiber sharding is ported.
-    ``checkpoint_path`` and ``resume_from`` are ported since this test was
-    written (it held their raise): a one-iteration solve writes the file and
-    a resume from it continues (tests/test_torch_resume.py holds the resume
-    bit for bit)."""
+    """Every option this test once held to its raise is ported now.
+    ``mesh=`` (the multi-GPU fiber sharding): on a world of one (gloo, this
+    process) a solve equals the unsharded one bit for bit, and an object that
+    is no device mesh is refused (tests/test_torch_parallel.py holds 4
+    ranks). ``checkpoint_path`` and ``resume_from``: a one-iteration solve
+    writes the file and a resume from it continues
+    (tests/test_torch_resume.py holds the resume bit for bit)."""
     prob = tm.make_problem("lq")
     run = dict(n_controls=3, rmax=4, device="cpu")
-    if waits_for != "checkpoint":
-        with pytest.raises(NotImplementedError, match=waits_for):
+    if waits_for == "multi-GPU":
+        from c3sc_tpu_torch.parallel import make_mesh
+
+        with pytest.raises(TypeError, match="DeviceMesh"):
             fused_tt_vi(prob, prob.default_grid(11), max_iters=1, **run, **kw)
+        with no_process_group():
+            one, sharded = (fused_tt_vi(prob, prob.default_grid(11), max_iters=3, **run, mesh=m)
+                            for m in (None, make_mesh(device="cpu")))
+        assert int(sharded.carry.it) == 3
+        assert all(torch.equal(a, b) for a, b in zip(one.v.cores, sharded.v.cores))
         return
     monkeypatch.chdir(tmp_path)
     first = fused_tt_vi(prob, prob.default_grid(11), max_iters=1, checkpoint_path="x.npz", **run)
