@@ -7,7 +7,8 @@
 // (dense_backup_general, dense_evaluate_general, below) take problems
 // without the structure declarations from per-candidate operands.
 //
-// What it computes, per grid node n (row-major multi-index, any d <= 8):
+// What it computes, per grid node n (row-major multi-index; the structured
+// entries take d <= 8 and du <= 4, the general ones any d <= 32):
 //   v_in = v, optionally clipped to [lo, hi] and with terminal nodes pinned
 //          to their exit value (the Pallas semantics; JAX's dense_vi
 //          `improve` does neither);
@@ -105,8 +106,9 @@
 
 namespace {
 
-constexpr int kMaxD = 8;
-constexpr int kMaxDU = 4;
+constexpr int kMaxD = 8;       // the compiled-d forms (a template argument D <= 8)
+constexpr int kMaxDU = 4;      // the structured entries' controls
+constexpr int kMaxDWide = 32;  // the general entries' run-time-d form, 8 < d <= 32
 constexpr int kBlock = 256;
 constexpr int kCandTile = 512;  // candidates staged in shared memory at a time
 constexpr int kSpacingStride = 8;  // floats a Spacing table entry takes (5 used)
@@ -589,22 +591,224 @@ dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __rest
   vnew[n] = general_rhs<D, Idx>(f, g, nu, sp, vp, vm, Q0, A0, gcost, op.beta);
 }
 
+// ---- the general entries' run-time-d form: 8 < d <= kMaxDWide ----------------------
+//
+// A problem of more than eight states (and any structured problem beyond the
+// structured entries' d <= 8, du <= 4) takes the general entries; above
+// kMaxD they run these two kernels, whose d is a run-time value, rather than
+// more template instantiations: each D would add four kernels to a build that
+// already takes about a minute. The arithmetic is the compiled forms', step
+// for step (the same intrinsics in the same order), so a dim's terms round as
+// they do there. What changes is where the per-dim state lives: the neighbour
+// values v+-_j and the node's spacing-table entries are arrays of capacity
+// kMaxDWide indexed at run time, so they sit in local memory (each thread's
+// own, interleaved so that a warp's access of one j is one line, cached in
+// L1), and the operands fc, s2c, s2 are read dim by dim inside the loops
+// that use them, never held. At d >= 9 a candidate reads 4 d bytes of fc a
+// node, so the sweep is bound by device memory; the local arrays add L1
+// traffic, not device-memory traffic, while they stay in the cache. The grid
+// descriptor is WideGridDesc, whose arrays have kMaxDWide entries; it is
+// passed as a __grid_constant__ parameter, so that indexing it at run time
+// reads the parameter in place instead of copying it to every thread's
+// local memory. GridDesc and the compiled forms are unchanged.
+template <typename Idx>
+struct WideGridDesc {
+  int d;
+  Idx shape[kMaxDWide];
+  Idx stride[kMaxDWide];
+  Idx wrap[kMaxDWide];
+  uint32_t magic[kMaxDWide];
+  int shift[kMaxDWide];
+  float ih[kMaxDWide];
+  float a_scale[kMaxDWide];
+  const float* nu;
+  int toff[kMaxDWide];
+};
+
+C3SC_FN uint32_t quotient(uint32_t rem, const WideGridDesc<uint32_t>& g, int j) {
+  return g.shape[j] == 1 ? rem : __umulhi(rem, g.magic[j]) >> g.shift[j];
+}
+C3SC_FN long long quotient(long long rem, const WideGridDesc<long long>& g, int j) {
+  return rem / g.shape[j];
+}
+
+// The per-dim state of one node: v at the +-1 neighbours, as the sweep reads
+// it, and (non-uniform grids) the node's entry of each dim's Spacing table.
+struct WideNode {
+  float vp[kMaxDWide];
+  float vm[kMaxDWide];
+  int row[kMaxDWide];
+};
+
+template <typename Idx>
+C3SC_FN void wide_neighbour_values(Idx n, const float* v, const uint8_t* t_mask,
+                                   const float* t_val, const WideGridDesc<Idx>& g, int clip,
+                                   float lo, float hi, int pin, WideNode& w) {
+  Idx rem = n;
+  for (int j = g.d - 1; j >= 0; --j) {
+    const Idx len = g.shape[j];
+    const Idx s = g.stride[j];
+    Idx i = rem;  // the outermost index is what is left
+    if (j > 0) {
+      const Idx quot = quotient(rem, g, j);
+      i = rem - quot * len;
+      rem = quot;
+    }
+    const Idx up = (i + 1 < len) ? n + s : n - g.wrap[j];
+    const Idx dn = (i > 0) ? n - s : n + g.wrap[j];
+    float a = v[up], b = v[dn];
+    if (clip) {
+      a = fminf(fmaxf(a, lo), hi);
+      b = fminf(fmaxf(b, lo), hi);
+    }
+    if (pin) {
+      if (t_mask[up]) a = t_val[up];
+      if (t_mask[dn]) b = t_val[dn];
+    }
+    w.vp[j] = a;
+    w.vm[j] = b;
+    w.row[j] = g.toff[j] + (int)i;
+  }
+}
+
+// The node's Spacing-table entry of dim j: 1/h+, 1/h-, 1/(h+ h-),
+// 1/(h+ (h+ + h-)), 1/(h- (h+ + h-)).
+template <typename Idx>
+C3SC_FN const float* wide_spacing(const WideGridDesc<Idx>& g, const WideNode& w, int j) {
+  return g.nu + (long long)w.row[j] * kSpacingStride;
+}
+
+// diffusion_terms from the variances s2[at + j N], read dim by dim.
+template <typename Idx>
+C3SC_FN void wide_diffusion_terms(const float* s2, Idx at, Idx N, const WideGridDesc<Idx>& g,
+                                  bool nu, const WideNode& w, float& Q0, float& A0) {
+  float q0 = 0.0f, a0 = 0.0f;
+  for (int j = 0; j < g.d; ++j) {
+    const float s = s2[at + (Idx)j * N];
+    if (nu) {
+      const float* e = wide_spacing(g, w, j);
+      q0 = fmaf(s, __ldg(e + 2), q0);
+      a0 = fmaf(s, fmaf(__ldg(e + 3), w.vp[j], __fmul_rn(__ldg(e + 4), w.vm[j])), a0);
+    } else {
+      const float a = __fmul_rn(s, g.a_scale[j]);
+      q0 = fmaf(2.0f, a, q0);
+      a0 = fmaf(a, __fadd_rn(w.vp[j], w.vm[j]), a0);
+    }
+  }
+  Q0 = __fadd_rn(q0, 1e-10f);
+  A0 = a0;
+}
+
+// general_rhs from the drift f[at + j N], read dim by dim.
+template <typename Idx>
+C3SC_FN float wide_general_rhs(const float* f, Idx at, Idx N, const WideGridDesc<Idx>& g,
+                               bool nu, const WideNode& w, float Q0, float A0, float gcost,
+                               float beta) {
+  float Q = Q0;
+  float S = 0.0f;
+  for (int j = 0; j < g.d; ++j) {
+    const float fj = f[at + (Idx)j * N];
+    const float fh = __fmul_rn(
+        fj, nu ? __ldg(wide_spacing(g, w, j) + (fj > 0.0f ? 0 : 1)) : g.ih[j]);
+    const float af = fabsf(fh);
+    Q = __fadd_rn(Q, af);
+    S = fmaf(af, fh > 0.0f ? w.vp[j] : w.vm[j], S);
+  }
+  const float dt = __frcp_rn(Q);
+  const float e = expf(__fmul_rn(-beta, dt));
+  return __fmul_rn(dt, fmaf(e, __fadd_rn(A0, S), gcost));
+}
+
+// dense_backup_general_kernel with a run-time d.
+template <int NU, typename Idx>
+__global__ void __launch_bounds__(kBlock)
+wide_dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op,
+                                 PolicyOperands pol, const __grid_constant__ WideGridDesc<Idx> g,
+                                 long long N, int clip, float lo, float hi, int pin,
+                                 float* __restrict__ vnew, int32_t* __restrict__ best) {
+  const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
+  if (n >= (Idx)N) return;
+  constexpr bool nu = NU == kNonuniform;
+  const Idx nn = (Idx)N;
+  const Idx plane = (Idx)g.d * nn;  // floats of one candidate's [d, N] operands
+  WideNode w;
+  wide_neighbour_values<Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, w);
+  float Q0n = 0.0f, A0n = 0.0f, q = 0.0f;
+  if (op.s2 != nullptr) wide_diffusion_terms<Idx>(op.s2, n, nn, g, nu, w, Q0n, A0n);
+  if (op.q != nullptr) q = op.q[n];
+  float best_v = 3.4e38f;
+  int best_c = 0;
+  for (int c = 0; c < op.C; ++c) {
+    const Idx at = (Idx)c * plane + n;
+    float Q0 = Q0n, A0 = A0n;
+    if (op.s2c != nullptr) wide_diffusion_terms<Idx>(op.s2c, at, nn, g, nu, w, Q0, A0);
+    const float gcost = op.gc != nullptr ? op.gc[(Idx)c * nn + n] : __fadd_rn(op.r[c], q);
+    const float rhs = wide_general_rhs<Idx>(op.fc, at, nn, g, nu, w, Q0, A0, gcost, op.beta);
+    if (rhs < best_v) {
+      best_v = rhs;
+      best_c = c;
+    }
+  }
+  if (clip) best_v = fminf(fmaxf(best_v, lo), hi);
+  vnew[n] = op.t_mask[n] ? op.t_val[n] : best_v;
+  best[n] = best_c;
+  if (pol.f != nullptr) {  // the warp read the winner's lines in the loop: L1 or L2 hits
+    const Idx at = (Idx)best_c * plane + n;
+    for (int j = 0; j < g.d; ++j) pol.f[(Idx)j * nn + n] = op.fc[at + (Idx)j * nn];
+    if (pol.s2 != nullptr) {
+      for (int j = 0; j < g.d; ++j) pol.s2[(Idx)j * nn + n] = op.s2c[at + (Idx)j * nn];
+    }
+    if (pol.g != nullptr) pol.g[n] = op.gc[(Idx)best_c * nn + n];
+  }
+}
+
+// dense_evaluate_general_kernel with a run-time d.
+template <int NU, typename Idx>
+__global__ void __launch_bounds__(kBlock)
+wide_dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __restrict__ best,
+                                   GeneralOperands op, PolicyOperands pol,
+                                   const __grid_constant__ WideGridDesc<Idx> g, long long N,
+                                   float* __restrict__ vnew) {
+  const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
+  if (n >= (Idx)N) return;
+  if (op.t_mask[n]) {
+    vnew[n] = op.t_val[n];
+    return;
+  }
+  const int c = best[n];
+  if (c < 0 || c >= op.C) {  // make a bad policy index visible, never read past r
+    vnew[n] = nanf("");
+    return;
+  }
+  constexpr bool nu = NU == kNonuniform;
+  const Idx nn = (Idx)N;
+  float Q0, A0;
+  WideNode w;
+  wide_neighbour_values<Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, w);
+  wide_diffusion_terms<Idx>(pol.s2 != nullptr ? pol.s2 : op.s2, n, nn, g, nu, w, Q0, A0);
+  const float gcost = pol.g != nullptr ? pol.g[n] : __fadd_rn(__ldg(op.r + c), op.q[n]);
+  vnew[n] = wide_general_rhs<Idx>(pol.f, n, nn, g, nu, w, Q0, A0, gcost, op.beta);
+}
+
 // ---- host side ---------------------------------------------------------------------
 
-inline void set_magic(GridDesc<uint32_t>* g, int j, long long len) {
+// Desc is GridDesc or WideGridDesc.
+template <template <typename> class Desc>
+inline void set_magic(Desc<uint32_t>* g, int j, long long len) {
   int l = 0;
   while ((1LL << l) < len) ++l;
   g->magic[j] = len == 1 ? 0u : (uint32_t)(((1ULL << (31 + l)) + len - 1) / len);
   g->shift[j] = len == 1 ? 0 : l - 1;
 }
-inline void set_magic(GridDesc<long long>* g, int j, long long) {
+template <template <typename> class Desc>
+inline void set_magic(Desc<long long>* g, int j, long long) {
   g->magic[j] = 0u;
   g->shift[j] = 0;
 }
 
-template <typename Idx>
+template <template <typename> class Desc, typename Idx>
 void make_desc(int d, const long long* shape, const float* h, const int* periodic,
-               const float* nu, GridDesc<Idx>* g) {
+               const float* nu, Desc<Idx>* g) {
   g->nu = nu;
   int off = 0;
   for (int j = 0; j < d; ++j) {
@@ -659,7 +863,7 @@ cudaError_t launch(const Call& c, long long N) {
     return preload_kernels(dense_backup_kernel<D, DU, NU, Idx>,
                            dense_evaluate_kernel<D, DU, NU, Idx>);
   GridDesc<Idx> g;
-  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, c.nu, &g);
+  make_desc(c.d, c.shape, c.h, c.periodic, c.nu, &g);
   const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
   if (c.best_in == nullptr) {
     dense_backup_kernel<D, DU, NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
@@ -694,9 +898,9 @@ cudaError_t run(const Call& c, long long N) {
     default: return cudaErrorInvalidValue;       \
   }
 
-// Nodes of a valid grid of d <= kMaxD dims, or -1.
+// Nodes of a valid grid of d <= kMaxDWide dims, or -1.
 long long grid_nodes(int d, const long long* shape, const float* h) {
-  if (d < 1 || d > kMaxD) return -1;
+  if (d < 1 || d > kMaxDWide) return -1;
   long long N = 1;
   for (int j = 0; j < d; ++j) {
     if (shape[j] < 1 || !(h[j] > 0.0f)) return -1;
@@ -748,7 +952,7 @@ cudaError_t launch_general(const GeneralCall& c, long long N) {
     return preload_kernels(dense_backup_general_kernel<D, NU, Idx>,
                            dense_evaluate_general_kernel<D, NU, Idx>);
   GridDesc<Idx> g;
-  make_desc<Idx>(c.d, c.shape, c.h, c.periodic, c.nu, &g);
+  make_desc(c.d, c.shape, c.h, c.periodic, c.nu, &g);
   const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
   if (c.best_in == nullptr) {
     dense_backup_general_kernel<D, NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
@@ -772,6 +976,36 @@ cudaError_t run_general(const GeneralCall& c, long long N) {
   if (c.wide || (long long)c.op.C * D * N >= (1LL << 31))
     return run_general_form<D, long long>(c, N);
   return run_general_form<D, uint32_t>(c, N);
+}
+
+template <int NU, typename Idx>
+cudaError_t launch_general_wide(const GeneralCall& c, long long N) {
+  if (c.preload)
+    return preload_kernels(wide_dense_backup_general_kernel<NU, Idx>,
+                           wide_dense_evaluate_general_kernel<NU, Idx>);
+  WideGridDesc<Idx> g;
+  make_desc(c.d, c.shape, c.h, c.periodic, c.nu, &g);
+  g.d = c.d;
+  const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
+  if (c.best_in == nullptr) {
+    wide_dense_backup_general_kernel<NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
+        c.v, c.op, c.pol, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
+  } else {
+    wide_dense_evaluate_general_kernel<NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
+        c.v, c.best_in, c.op, c.pol, g, N, c.vnew);
+  }
+  return cudaGetLastError();
+}
+
+// The run-time-d form (kMaxD < d <= kMaxDWide): the index width and the
+// stencil's form as in run_general.
+cudaError_t run_general_wide(const GeneralCall& c, long long N) {
+  const bool wide = c.wide || (long long)c.op.C * c.d * N >= (1LL << 31);
+  if (c.nu != nullptr)
+    return wide ? launch_general_wide<kNonuniform, long long>(c, N)
+                : launch_general_wide<kNonuniform, uint32_t>(c, N);
+  return wide ? launch_general_wide<kUniform, long long>(c, N)
+              : launch_general_wide<kUniform, uint32_t>(c, N);
 }
 
 cudaError_t dispatch_general(const GeneralCall& c) {
@@ -799,7 +1033,7 @@ cudaError_t dispatch_general(const GeneralCall& c) {
     case 6: return run_general<6>(c, N);
     case 7: return run_general<7>(c, N);
     case 8: return run_general<8>(c, N);
-    default: return cudaErrorInvalidValue;
+    default: return run_general_wide(c, N);  // grid_nodes took 8 < d <= kMaxDWide
   }
 }
 
@@ -873,9 +1107,10 @@ int c3sc_dense_evaluate_general(const float* v, const int32_t* best, const float
 }
 
 // Load the improve and evaluate kernels that a launch on this grid would run
-// (the structured ones for du >= 1, the general ones for du = 0; the
-// non-uniform ones where nu is not null), launching nothing: a CUDA graph's
-// capture can then record their launches.
+// (the structured ones for du >= 1, the general ones for du = 0, in their
+// run-time-d form where d > kMaxD; the non-uniform ones where nu is not
+// null), launching nothing: a CUDA graph's capture can then record their
+// launches.
 int c3sc_dense_preload(int d, int du, int C, const long long* shape, const float* h,
                        const int* periodic, const float* nu) {
   if (du == 0) {

@@ -19,14 +19,20 @@ load of one component is one line; the ``[N, d]`` forms are views of the
 same memory.
 
 A problem without all five declarations (the glider, whose drift is
-nonlinear in its control) takes the general entries ``dense_backup_general``
-and ``dense_evaluate_general``, the counterpart of the Pallas kernel's
-any-callable contract and of the XLA sweeps of ``c3sc_tpu/solvers/dense.py``:
-``make_dense_operands`` evaluates the problem's own callables once per
+nonlinear in its control), and a declared one beyond the structured kernels'
+``d <= MAX_D``, ``du <= MAX_DU``, takes the general entries
+``dense_backup_general`` and ``dense_evaluate_general``, the counterpart of
+the Pallas kernel's any-callable contract and of the XLA sweeps of
+``c3sc_tpu/solvers/dense.py``: ``make_dense_operands`` evaluates the problem's own callables once per
 problem and grid, in candidate chunks, into the per-candidate drift
 ``fc_k [C, d, N]`` (and ``s2c_k [C, d, N]`` where ``sigma2_x`` is missing,
 ``gc [C, N]`` where ``cost_q`` or ``cost_r`` is); ``dense_backup`` and
-``dense_evaluate`` route such operands there.
+``dense_evaluate`` route such operands there. Above ``MAX_D`` dims the general
+entries launch the kernels' run-time-d form, whose wrappers
+``wide_dense_backup_general`` and ``wide_dense_evaluate_general`` count its
+launches; above ``MAX_D_WIDE`` dims no kernel takes the grid and the
+wrappers raise. A grid of 33 dims of two nodes has 2^33 nodes, whose values
+alone take 32 GiB, so no such grid fits one card.
 
 Non-uniform grids. Every entry takes them: on such a grid the operands carry
 ``nu_k [sum_k n_k, 8]``, each dim's table of the reciprocal spacings the
@@ -70,8 +76,10 @@ from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
 
-MAX_D = 8   # kMaxD in csrc/dense_backup.cu
-MAX_DU = 4  # kMaxDU
+MAX_D = 8         # kMaxD in csrc/dense_backup.cu: the structured entries, and the
+                  # general entries' compiled-d form
+MAX_DU = 4        # kMaxDU: the structured entries' controls
+MAX_D_WIDE = 32   # kMaxDWide: the general entries' run-time-d form, MAX_D < d <= 32
 _EPS = 1e-10  # the stencil's guard against Q = 0, as in ops/mca.py
 
 
@@ -141,8 +149,13 @@ class DenseOperands:
             raise ValueError("operands of a non-uniform grid carry its spacing tables, "
                              "and only those do: build them with make_dense_operands")
         d, du = grid.ndim, problem.du
-        if d > MAX_D or du > MAX_DU:
-            raise NotImplementedError(f"dense sweep kernel: d <= {MAX_D}, du <= {MAX_DU}")
+        if self.general and d > MAX_D_WIDE:
+            raise ValueError(f"dense sweep kernel: the general entries take grids of at most "
+                             f"{MAX_D_WIDE} dims (MAX_D_WIDE), got {d}")
+        if not self.general and (d > MAX_D or du > MAX_DU):
+            raise ValueError(f"dense sweep kernel: structured operands take d <= {MAX_D} and "
+                             f"du <= {MAX_DU}, got d = {d}, du = {du}: make_dense_operands "
+                             f"gives such a problem the general operands")
         if self.general:
             tensors = (self.fc_k, self.s2_k, self.s2c_k, self.q, self.r, self.gc, self.t_mask,
                        self.t_val)
@@ -163,12 +176,15 @@ class DenseOperands:
 def make_dense_operands(problem: ControlProblem, grid: Grid, controls,
                         device=None) -> DenseOperands:
     """Evaluate the v-independent sweep inputs once (float32, on ``device``;
-    None: the default CUDA device)."""
+    None: the default CUDA device): the structured operands for a problem
+    with all five declarations within ``d <= MAX_D`` and ``du <= MAX_DU``,
+    else the general operands (``C d N`` floats of drift, no more than the
+    JAX package's ``[C, N, d]`` stencil of ``_precompute``)."""
     f32 = torch.float32
     x = grid.node_states(resolve_device(device))
     uc = torch.as_tensor(controls, dtype=f32, device=x.device).contiguous()
     t_mask, t_val = mca.node_terminal(problem, grid, grid.node_indices(x.device), x)
-    if problem.structured:
+    if problem.structured and grid.ndim <= MAX_D and problem.du <= MAX_DU:
         # node-major declarations -> the kernel's structure-of-arrays copies
         declared = dict(
             f0_k=problem.drift_f0(x).to(f32).T.contiguous(),
@@ -423,7 +439,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-ENTRIES = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general")
+ENTRIES = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general",
+           "wide_dense_backup_general", "wide_dense_evaluate_general")
 
 
 def launch_counts() -> dict:
@@ -579,23 +596,56 @@ def _ptr(t):
 def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
                          with_policy: bool = False, _wide_index: bool = False):
     """One improve sweep on general operands (a problem without all five
-    declarations): (vnew [*grid.shape] f32, best [N] int32), with
-    ``dense_backup``'s ``clip`` and ``pin_input`` switches; with
-    ``with_policy`` (vnew, ``DensePolicy``), whose operands the kernel's
-    epilogue writes after re-reading the winner's lines of ``fc`` (``s2c``,
-    ``gc``), which its warp read in the candidate loop and which come from
-    L1 or L2.
+    declarations, or beyond the structured kernels' limits): (vnew
+    [*grid.shape] f32, best [N] int32), with ``dense_backup``'s ``clip`` and
+    ``pin_input`` switches; with ``with_policy`` (vnew, ``DensePolicy``),
+    whose operands the kernel's epilogue writes after re-reading the winner's
+    lines of ``fc`` (``s2c``, ``gc``), which its warp read in the candidate
+    loop and which come from L1 or L2.
 
     CPU tensors take the plain version (``dense_backup_reference``, through
     ``mca.transition_all_controls``'s per-candidate branch, and
     ``gather_policy``); CUDA tensors launch the kernel
-    (``dense_backup_general.launches`` counts those launches). 64-bit
+    (``dense_backup_general.launches`` counts those launches), or, on a grid
+    of more than ``MAX_D`` dims, ``wide_dense_backup_general``. 64-bit
     offsets are taken when C d N >= 2^31; ``_wide_index`` forces them.
     """
     if v.device.type == "cpu":
         return dense_backup_reference(ops, v, clip, pin_input, with_policy)
     _require_cuda(v, "dense_backup_general")
     _require_general(ops, "dense_backup_general")
+    if ops.grid.ndim > MAX_D:
+        return wide_dense_backup_general(ops, v, clip, pin_input, with_policy=with_policy,
+                                         _wide_index=_wide_index)
+    out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index)
+    dense_backup_general.launches += 1
+    return out
+
+
+dense_backup_general.launches = 0
+
+
+def wide_dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
+                              with_policy: bool = False, _wide_index: bool = False):
+    """``dense_backup_general`` on a grid of ``MAX_D < d <= MAX_D_WIDE`` dims:
+    the kernel's run-time-d form (``wide_dense_backup_general.launches``
+    counts its launches). CPU tensors take the plain version. More than
+    ``MAX_D_WIDE`` dims raise ValueError."""
+    if v.device.type == "cpu":
+        return dense_backup_reference(ops, v, clip, pin_input, with_policy)
+    _require_cuda(v, "wide_dense_backup_general")
+    _require_general(ops, "wide_dense_backup_general")
+    _require_wide(ops, "wide_dense_backup_general")
+    out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index)
+    wide_dense_backup_general.launches += 1
+    return out
+
+
+wide_dense_backup_general.launches = 0
+
+
+def _launch_backup_general(ops: DenseOperands, v, clip, pin_input, with_policy, wide_index):
+    """Launch the general improve kernel (the library picks the form by d)."""
     ptrs, scalars = _kernel_inputs(ops, v)
     N, d = ops.x.shape
     vnew = torch.empty(N, dtype=torch.float32, device=v.device)
@@ -608,12 +658,8 @@ def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = Fal
     lo, hi = (float(clip[0]), float(clip[1])) if clip is not None else (0.0, 0.0)
     _launch("c3sc_dense_backup_general", v, v.data_ptr(), *ptrs, vnew.data_ptr(),
             best.data_ptr(), _ptr(pol.fpol_k), _ptr(pol.s2pol_k), _ptr(pol.gpol), *scalars,
-            int(clip is not None), lo, hi, int(pin_input), int(_wide_index))
-    dense_backup_general.launches += 1
+            int(clip is not None), lo, hi, int(pin_input), int(wide_index))
     return vnew.view(ops.grid.shape), (pol if with_policy else best)
-
-
-dense_backup_general.launches = 0
 
 
 def dense_evaluate_general(ops: DenseOperands, v, policy: Union[DensePolicy, torch.Tensor], *,
@@ -624,12 +670,44 @@ def dense_evaluate_general(ops: DenseOperands, v, policy: Union[DensePolicy, tor
     nodes. The kernel reads the policy's operands, never ``fc_k``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``dense_evaluate_general.launches`` counts those launches).
+    (``dense_evaluate_general.launches`` counts those launches), or, on a
+    grid of more than ``MAX_D`` dims, ``wide_dense_evaluate_general``.
     """
     if v.device.type == "cpu":
         return dense_evaluate_reference(ops, v, policy)
     _require_cuda(v, "dense_evaluate_general")
     _require_general(ops, "dense_evaluate_general")
+    if ops.grid.ndim > MAX_D:
+        return wide_dense_evaluate_general(ops, v, policy, _wide_index=_wide_index)
+    out = _launch_evaluate_general(ops, v, policy, _wide_index)
+    dense_evaluate_general.launches += 1
+    return out
+
+
+dense_evaluate_general.launches = 0
+
+
+def wide_dense_evaluate_general(ops: DenseOperands, v,
+                                policy: Union[DensePolicy, torch.Tensor], *,
+                                _wide_index: bool = False):
+    """``dense_evaluate_general`` on a grid of ``MAX_D < d <= MAX_D_WIDE``
+    dims: the kernel's run-time-d form (``wide_dense_evaluate_general.launches``
+    counts its launches). CPU tensors take the plain version."""
+    if v.device.type == "cpu":
+        return dense_evaluate_reference(ops, v, policy)
+    _require_cuda(v, "wide_dense_evaluate_general")
+    _require_general(ops, "wide_dense_evaluate_general")
+    _require_wide(ops, "wide_dense_evaluate_general")
+    out = _launch_evaluate_general(ops, v, policy, _wide_index)
+    wide_dense_evaluate_general.launches += 1
+    return out
+
+
+wide_dense_evaluate_general.launches = 0
+
+
+def _launch_evaluate_general(ops: DenseOperands, v, policy, wide_index):
+    """Launch the general evaluate kernel (the library picks the form by d)."""
     ptrs, scalars = _kernel_inputs(ops, v)
     if not isinstance(policy, DensePolicy):
         _check_policy(v, policy)
@@ -638,9 +716,11 @@ def dense_evaluate_general(ops: DenseOperands, v, policy: Union[DensePolicy, tor
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
     _launch("c3sc_dense_evaluate_general", v, v.data_ptr(), policy.best.data_ptr(),
             _ptr(policy.fpol_k), _ptr(policy.s2pol_k), _ptr(policy.gpol), *ptrs,
-            vnew.data_ptr(), *scalars, int(_wide_index))
-    dense_evaluate_general.launches += 1
+            vnew.data_ptr(), *scalars, int(wide_index))
     return vnew.view(ops.grid.shape)
 
 
-dense_evaluate_general.launches = 0
+def _require_wide(ops: DenseOperands, name):
+    if ops.grid.ndim <= MAX_D:
+        raise ValueError(f"{name}: grids of more than {MAX_D} dims; the general entry takes "
+                         f"d <= {MAX_D}")

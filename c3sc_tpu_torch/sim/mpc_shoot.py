@@ -1,5 +1,5 @@
-"""Receding-horizon MPC over the learned value function — the pure-MPC path
-of ``c3sc_tpu/sim/mpc_shoot.py``.
+"""Receding-horizon MPC over the learned value function — the counterpart of
+``c3sc_tpu/sim/mpc_shoot.py``.
 
 Each replan optimises a whole control trajectory (certainty-equivalent
 receding horizon):
@@ -19,8 +19,13 @@ cost accounting of ``sim/integrators.rollout``; its Euler–Maruyama noise is
 an explicit tensor ``[n_steps, B, dw]`` or is drawn step by step from a
 ``torch.Generator``, where the JAX package splits a key. On a CUDA device a
 replan is captured once as a CUDA graph and replayed at every replan (it has
-fixed shapes and reads nothing on the host). The dual-mode terminal-LQR
-latch of the JAX module is not ported: it measured harmful.
+fixed shapes and reads nothing on the host).
+
+Dual-mode MPC (``terminal_lqr=``, off by default as in the JAX package): a
+``sim.terminal.TerminalLQR`` hands each sample, from the step it first enters
+the goal basin on, to the exact discounted LQR at the goal. The latch is a
+``[B]`` bool carried through the step loop; it lies outside the replan's
+graph and costs a few elementwise operations a step, with no host read.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.sim.ilqr import _clip, make_ilqr_plan, make_step_fn, problem_periodic
 from c3sc_tpu_torch.sim.integrators import Trajectory, _apply_boundaries, _exit_value
+from c3sc_tpu_torch.sim.terminal import terminal_control
 
 PLANNERS = ("ilqr", "shooting")
 __all__ = ["PLANNERS", "problem_periodic", "make_plan_fn", "receding_horizon_rollout"]
@@ -135,7 +141,7 @@ class _GraphedCall:
 
 def _rh_rollout(problem, grid, value_fn, x0, u_init, dt, n_steps, horizon, replan_every,
                 opt_iters, lr, greedy_seed=None, planner="ilqr", noise=None, generator=None,
-                replan_times=None):
+                replan_times=None, terminal_lqr=None):
     B = x0.shape[0]
     dev, dtype = x0.device, x0.dtype
     if planner == "ilqr":
@@ -162,6 +168,10 @@ def _rh_rollout(problem, grid, value_fn, x0, u_init, dt, n_steps, horizon, repla
     alive = torch.ones(B, dtype=torch.bool, device=dev)
     t = torch.zeros((), dtype=dtype, device=dev)
     texit = torch.full((B,), n_steps * dt, dtype=dtype, device=dev)
+    if terminal_lqr is not None:
+        tmode = torch.zeros(B, dtype=torch.bool, device=dev)   # the dual-mode latch
+        ulb = const_tensor(problem.ulb, dtype, dev)
+        uub = const_tensor(problem.uub, dtype, dev)
     xs, us, alives = [x0], [], [alive]
     for i in range(n_steps):
         if i % replan_every == 0:
@@ -174,6 +184,13 @@ def _rh_rollout(problem, grid, value_fn, x0, u_init, dt, n_steps, horizon, repla
                 synchronize(dev)
                 replan_times.append(time.perf_counter() - t0)
         u = u_seq[:, 0]
+        if terminal_lqr is not None:
+            # dual-mode MPC: once a sample first enters the terminal basin it
+            # stays with the goal's LQR (a momentary membership test lets a
+            # tilted value field fight the LQR at the basin's shell)
+            u_lqr, in_basin = terminal_control(terminal_lqr, x, ulb, uub)
+            tmode = tmode | in_basin
+            u = torch.where(tmode[:, None], u_lqr, u)
         # plant: true stochastic dynamics, true boundary semantics, the cost
         # accounting of integrators.rollout
         nz = noise[i] if noise is not None else torch.randn(
@@ -218,6 +235,7 @@ def receding_horizon_rollout(
     noise=None,
     generator: torch.Generator | None = None,
     replan_times: list | None = None,
+    terminal_lqr=None,
 ) -> Trajectory:
     """Closed-loop receding-horizon MPC rollout (module docstring), on the
     device of x0 [B, d].
@@ -233,6 +251,8 @@ def receding_horizon_rollout(
     On a CUDA device the first replan is captured as a CUDA graph, which
     every later replan replays. ``replan_times``: a list to which the device-synced wall time of every
     replan is appended, in seconds (the first includes the graph's capture).
+    ``terminal_lqr``: a ``sim.terminal.TerminalLQR`` on x0's device turns on
+    dual-mode MPC (the module docstring); None, the default, is pure MPC.
     Plant noise, boundaries and cost accounting match
     ``integrators.rollout``, so common-random-number comparisons against the
     greedy implicit policy are like for like.
@@ -246,6 +266,8 @@ def receding_horizon_rollout(
         raise ValueError(f"noise must be [{n_steps}, {B}, {problem.dw}], got {tuple(noise.shape)}")
     if noise is None and generator is None:
         raise ValueError("receding_horizon_rollout needs noise= or generator=")
+    if terminal_lqr is not None and terminal_lqr.K.device != x0.device:
+        raise ValueError(f"terminal_lqr is on {terminal_lqr.K.device}, x0 on {x0.device}")
     greedy_seed = None
     if controls is not None:
         uc = torch.as_tensor(controls, dtype=torch.float32, device=x0.device)
@@ -262,4 +284,5 @@ def receding_horizon_rollout(
         return _rh_rollout(problem, grid, value_fn, x0, u_init, float(dt), int(n_steps),
                            int(horizon), int(replan_every), int(opt_iters), float(lr),
                            greedy_seed=greedy_seed, planner=planner, noise=noise,
-                           generator=generator, replan_times=replan_times)
+                           generator=generator, replan_times=replan_times,
+                           terminal_lqr=terminal_lqr)

@@ -3,7 +3,8 @@
 iteration, the receding-horizon control path, the flagship accuracy stack,
 the remaining models, the remaining solvers, the users' entry points
 (the CLI, the C3Control builder) and the parallel paths (device meshes,
-the sharded backup and rollout, batched solves) once on one NVIDIA GPU.
+the sharded backup and rollout, batched solves) and K1 on problems beyond
+its structured entries (five controls, nine states) once on one NVIDIA GPU.
 
     python3 chip_smoke.py              every phase
     python3 chip_smoke.py --phases F   phases A, B, D at 9^6 and F (while developing)
@@ -19,6 +20,7 @@ the sharded backup and rollout, batched solves) once on one NVIDIA GPU.
     python3 chip_smoke.py --phases K   phases A, B and K at full depth (the documented
                                        quadcopter CLI run uncut)
     python3 chip_smoke.py --phases L   phases A, B, D at 9^6, F.2 and L
+    python3 chip_smoke.py --phases M   phases A, B and M
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
@@ -51,7 +53,7 @@ non-zero, with no result line):
          900 iterations) against phase D's dense solve: interior q95 of
          |v_tt - v_dense| / range <= 0.25; then the probe harvest at a small depth
      F.3 the bench configuration at full width: 31^6, rmax 16 and 32, tol 0:
-         ms/iteration over 50 (eager loop) and 200 (CUDA graph of one
+         ms/iteration over 25 (eager loop) and 200 (CUDA graph of one
          iteration) iterations, active backups/s, warm 3-iteration replan
      F.4 torch.profiler over 10 warm iterations at 31^6 rmax 16: device-busy
          time, idle share, and the device time and launches of the two blocks
@@ -94,7 +96,13 @@ non-zero, with no result line):
          numbers: greedy closed loops 256 x 400 steps at dt 0.01 (x0 as
          quad_dense_oracle.py draws it), then receding-horizon iLQR (horizon 128,
          a replan every 4 steps, 8 iterations, no terminal LQR; 64 rollouts in
-         the whole script, 256 under --phases H), each replan a CUDA graph
+         the whole script, 256 under --phases H), each replan a CUDA graph;
+         then the dual-mode row: the same iLQR on the dense value with the
+         terminal LQR latch (make_terminal_lqr(radius=0.4), as
+         experiments/northstar_deploy_dualmode.py builds it), the same x0
+         and noise: mean cost, survival, signed_rel against the pure-MPC
+         dense row, median replan within 5 % of the pure row's (the latch
+         lies outside the replan's graph)
      then K1 held against its plain version on the patch's 7^6 sub-box (one
      sweep, and the whole patch solve)
   I  the remaining models, each held to the JAX package's own bars:
@@ -196,11 +204,28 @@ non-zero, with no result line):
          memory; instances 0 and 1 bit-equal to their graphed single solves
      L.4 the sharded 256 x 400 rollout on F.2's value, bit-equal to rollout
          under common noise; then from per-block seeds
-K1's launch counts (all four entries) are set to 0 before each of D+E, F,
-G, H, I, J, K and L and read after it (each of D+E to K must launch the
-structured entries, H the improve entry, I all four; L reaches none); the
-kernels line sums them. Then one JSON
-line of the kernels, and as the last line
+  M  K1 on the problems its structured entries cannot take:
+     M.1 (kernels outside the counted run) the double integrator of
+         C3Control(dx=2, du=5) (acceleration the sum of five inputs; 3
+         candidates a control, 243) on 201^2 (40,401 nodes, fc 79 MB), and
+         the same problem with all five declarations, which du = 5 also
+         sends to the general entries: both against the plain version by
+         C's bars, both semantics; ms a sweep against the bound
+     M.2 (kernels outside the counted run) C3Control(dx=9, du=1): x_j' =
+         -x_j + u [j = 0], noise 0.3, cost |x|^2 + 0.1 u^2, reflecting faces
+         on [-1, 1]^9, 3 candidates, on 5^9 (1,953,125 nodes) and on a tanh
+         grid of that shape: the general entries' run-time-d form
+         (wide_dense_backup_general, wide_dense_evaluate_general) against
+         the plain version by C's bars, both semantics; ms a sweep (CUDA
+         graph of 100 launches), the plain version's, and the byte bound.
+         On the main path: dense_vi on the card against the CPU within
+         1e-4 x max|v|, the du = 5 problem at 21^2 (both forms) and the
+         nine-state one at 3^9
+K1's launch counts (all six entries) are set to 0 before each of D+E, F,
+G, H, I, J, K, L and M and read after it (each of D+E to K must launch the
+structured entries, H the improve entry, I the four compiled entries, M the
+general and the wide ones; L reaches none); the kernels line sums them.
+Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -230,6 +255,8 @@ FLAGSHIP_Q95_BAR = 0.05   # the deployed composite at the recipe's full depth (J
 MPC_BUDGET_S = 25 * 0.01   # real time: a warm replan within the 25 x 0.01 s it plans for
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
 KERNELS = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general")
+WIDE = ("wide_dense_backup_general", "wide_dense_evaluate_general")   # the run-time-d form
+ALL_KERNELS = KERNELS + WIDE
 NORTHSTAR7 = os.path.join(REPO, "NORTHSTAR7.json")  # the JAX package's 7D record (a TPU run)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -259,8 +286,8 @@ def phase_b_build():
     t0 = time.time()
     db._lib()
     log(f"[B] built and loaded K1 in {time.time() - t0:.1f} s ({_ext.build_dir()})")
-    # registers and spills of the 6D / 2-control instantiations and of the
-    # glider's general ones (d = 4), from ptxas -v
+    # registers and spills of the 6D / 2-control instantiations, of the
+    # glider's general ones (d = 4) and of the run-time-d form, from ptxas -v
     text = (_ext.build_dir() / "build.log").read_text()
     for kind, args, mangled in (("dense_backup_kernel", "6,2", "ILi6ELi2ELi0EjE"),
                                 ("dense_evaluate_kernel", "6,2", "ILi6ELi2ELi0EjE"),
@@ -270,15 +297,19 @@ def phase_b_build():
                                 ("dense_evaluate_kernel", "6,2,nu", "ILi6ELi2ELi1EjE"),
                                 ("dense_backup_kernel", "7,2,nu", "ILi7ELi2ELi1EjE"),
                                 ("dense_backup_general_kernel", "4,nu", "ILi4ELi1EjE"),
-                                ("dense_evaluate_general_kernel", "4,nu", "ILi4ELi1EjE")):
+                                ("dense_evaluate_general_kernel", "4,nu", "ILi4ELi1EjE"),
+                                ("wide_dense_backup_general_kernel", "d", "ILi0EjE"),
+                                ("wide_dense_evaluate_general_kernel", "d", "ILi0EjE"),
+                                ("wide_dense_backup_general_kernel", "d,nu", "ILi1EjE")):
         # ...ILi6ELi2ELi0EjE...: d = 6, du = 2, the uniform stencil (Li1: the
         # non-uniform one), 32-bit (unsigned int) indices
         m = re.search(kind + mangled + r".*?Used (\d+) registers", text, re.S)
-        spill = re.search(kind + mangled + r".*?(\d+) bytes spill stores", text, re.S)
+        spill = re.search(kind + mangled + r".*?(\d+) bytes stack frame, (\d+) bytes spill stores",
+                          text, re.S)
         if m is None or spill is None:
             raise RuntimeError(f"build.log has no ptxas line for {kind}<{args},uint32>")
-        log(f"[B] {kind}<{args},uint32>: registers {m.group(1)}, spill stores "
-            f"{spill.group(1)} B")
+        log(f"[B] {kind}<{args},uint32>: registers {m.group(1)}, stack frame "
+            f"{spill.group(1)} B, spill stores {spill.group(2)} B")
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -572,13 +603,13 @@ def replay_traced(step, v, label, tag):
         v, res = step(v, 2)
         torch.cuda.synchronize()
     counted_ = {k: n - before[k] for k, n in db.launch_counts().items()}
-    ran = dict.fromkeys(KERNELS, 0)
+    ran = dict.fromkeys(ALL_KERNELS, 0)
     device_events = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         device_events += 1
-        m = re.search(r"\b(dense_(?:backup|evaluate)(?:_general)?)_kernel\b", e.name)
+        m = re.search(r"\b((?:wide_)?dense_(?:backup|evaluate)(?:_general)?)_kernel\b", e.name)
         if m:
             ran[m.group(1)] += 1
     if device_events == 0:
@@ -897,7 +928,7 @@ def phase_f2_solve(v_dense, n=9, rmax=16):
     return sol, q95
 
 
-def phase_f3_bench(n=31, reps=200, eager_reps=50, warmup=30):
+def phase_f3_bench(n=31, reps=200, eager_reps=25, warmup=30):
     """The bench configuration: default quadcopter, 31^6, 25 candidates, tol 0.
     The eager loop is timed over ``eager_reps`` iterations (its rate is the
     host's launch rate, 0.1-0.25 s an iteration), the graph over ``reps``."""
@@ -1492,10 +1523,11 @@ def phase_h3_deploy(vfn_prod, n_greedy=256, n_mpc=256, n_steps=400, dt=0.01):
     """H.3: greedy and receding-horizon iLQR closed loops on the deployed
     composite and on the dense value, under common random numbers (the same
     x0 and noise for every recipe seed, as quad_dense_oracle.py draws them:
-    its deployment keys do not depend on the seed). Returns the greedy
-    cost_rel and the iLQR signed_rel and survivals."""
+    its deployment keys do not depend on the seed); then the dual-mode row
+    on the dense value. Returns the greedy cost_rel, the iLQR signed_rel and
+    survivals, and the dual-mode row's."""
     from c3sc_tpu_torch.ops.interp import multilinear_interp
-    from c3sc_tpu_torch.sim import make_implicit_policy, rollout
+    from c3sc_tpu_torch.sim import make_implicit_policy, make_terminal_lqr, rollout
     from c3sc_tpu_torch.sim.mpc_shoot import receding_horizon_rollout
 
     prob, grid, uc_np, vd = _flagship_setup()
@@ -1538,9 +1570,29 @@ def phase_h3_deploy(vfn_prod, n_greedy=256, n_mpc=256, n_steps=400, dt=0.01):
         f"{100 * s_o:.2f}%; {len(t_p)} replans, median replan {1e3 * np.median(t_p[1:]):.2f} ms "
         f"(composite) {1e3 * np.median(t_o[1:]):.2f} ms (dense), first (the graph's capture "
         f"on CUDA) {t_p[0]:.2f} s; wall {w_p:.2f} s and {w_o:.2f} s")
+    # the dual-mode row: the same closed loop on the dense value, each sample
+    # handed to the goal's LQR from its first step inside the basin
+    tl = make_terminal_lqr(prob, dt=dt, radius=0.4, device=DEVICE)   # northstar_deploy_dualmode.py:74
+    t_d = []
+    traj, w_d = _synced_s(lambda: receding_horizon_rollout(
+        prob, grid, vfn_dense, x0[:n_mpc], dt=dt, n_steps=n_steps, horizon=128, replan_every=4,
+        opt_iters=8, controls=uc, noise=noise[:, :n_mpc], replan_times=t_d, terminal_lqr=tl))
+    if not (torch.isfinite(traj.cost).all() and torch.isfinite(traj.xs).all()):
+        raise AssertionError("dual-mode iLQR closed loop on the dense value: not finite")
+    c_d, s_d = traj.cost.mean().item(), traj.alive[-1].float().mean().item()
+    med_d, med_o = np.median(t_d[1:]), np.median(t_o[1:])
+    log(f"[H.3] dual-mode iLQR (the same, terminal LQR latch at radius 0.4) on the dense value "
+        f"{n_mpc} x {n_steps} steps: mean cost {c_d:.4f}, signed_rel against the pure-MPC dense "
+        f"row {(c_d - c_o) / abs(c_o):+.4f}, survival {100 * s_d:.2f}%; median replan "
+        f"{1e3 * med_d:.2f} ms against the pure row's {1e3 * med_o:.2f} ms "
+        f"({100 * (med_d / med_o - 1):+.1f} %), first {t_d[0]:.2f} s; wall {w_d:.2f} s")
+    if not abs(med_d / med_o - 1) <= 0.05:
+        raise AssertionError(f"dual-mode median replan {1e3 * med_d:.2f} ms is not within 5 % of "
+                             f"the pure row's {1e3 * med_o:.2f} ms")
     (gc_p, _, _), (gc_o, _, _) = greedy["composite"], greedy["dense"]
     return dict(cost_rel=abs(gc_p - gc_o) / abs(gc_o), signed_rel=(c_p - c_o) / abs(c_o),
-                survival=s_p, survival_dense=s_o)
+                survival=s_p, survival_dense=s_o, dual_signed_rel=(c_d - c_o) / abs(c_o),
+                dual_survival=s_d)
 
 
 def compare_patch_kernel(ops, v0, stored, tol=1e-5, max_sweeps=2000, chunk=50):
@@ -2876,15 +2928,200 @@ def phase_l_parallel(sol):
                                          enumerate(zip([t0] + marks[1:-1], marks[1:]))))
 
 
-def _entries():
-    """K1's four entries by name: the wrappers that count their launches."""
+# ---- phase M: K1 beyond its structured entries -----------------------------------------
+
+WIDE_SIGMA = 0.3   # the diffusion of both of M's problems, on every state
+
+
+def _wide_diff(x, u):
+    """WIDE_SIGMA I [..., d, d] over the broadcast batch of x and u."""
+    batch = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+    return torch.diag_embed(x.new_full((*batch, x.shape[-1]), WIDE_SIGMA))
+
+
+def double_integrator_du5(declared=False):
+    """C3Control(dx=2, du=5): x0' = x1, x1' = u0 + ... + u4 (ROADMAP's
+    fixture for five controls), noise 0.3, cost |x|^2 + 0.1 |u|^2,
+    reflecting faces on [-2, 2]^2, u in [-0.4, 0.4]^5; ``declared`` adds
+    all five structure declarations."""
+    import dataclasses
+
+    from c3sc_tpu_torch.control import C3Control
+
+    prob = (C3Control(dx=2, du=5, dw=2, lb=[-2.0, -2.0], ub=[2.0, 2.0], beta=0.5,
+                      ulb=[-0.4] * 5, uub=[0.4] * 5, name="double_integrator_du5")
+            .add_drift(lambda x, u: torch.stack(torch.broadcast_tensors(x[..., 1], u.sum(-1)),
+                                                -1))
+            .add_diff(_wide_diff)
+            .add_stagecost(lambda x, u: (x * x).sum(-1) + 0.1 * (u * u).sum(-1))
+            .set_external_boundary(0, "reflect").set_external_boundary(1, "reflect")
+            .set_value_bounds(0.0, 50.0)).problem()
+    if not declared:
+        return prob
+    return dataclasses.replace(
+        prob, name=prob.name + " declared",
+        drift_f0=lambda x: torch.stack([x[..., 1], torch.zeros_like(x[..., 0])], -1),
+        drift_G=lambda x: torch.stack([torch.zeros_like(x[..., :1]).expand(*x.shape[:-1], 5),
+                                       torch.ones_like(x[..., :1]).expand(*x.shape[:-1], 5)],
+                                      -2),
+        sigma2_x=lambda x: torch.full_like(x, WIDE_SIGMA ** 2),
+        cost_q=lambda x: (x * x).sum(-1),
+        cost_r=lambda u: 0.1 * (u * u).sum(-1))
+
+
+def nine_states():
+    """C3Control(dx=9, du=1): x_j' = -x_j + u [j = 0], noise 0.3 on every
+    state, cost |x|^2 + 0.1 u^2, reflecting faces on [-1, 1]^9, u in [-1, 1]."""
+    from c3sc_tpu_torch.control import C3Control
+
+    ctrl = (C3Control(dx=9, du=1, dw=9, lb=[-1.0] * 9, ub=[1.0] * 9, beta=0.5,
+                      name="nine_states")
+            .add_drift(lambda x, u: torch.nn.functional.pad(u[..., :1], (0, 8)) - x)
+            .add_diff(_wide_diff)
+            .add_stagecost(lambda x, u: (x * x).sum(-1) + 0.1 * (u * u).sum(-1))
+            .set_value_bounds(0.0, 50.0))
+    for j in range(9):
+        ctrl.set_external_boundary(j, "reflect")
+    return ctrl.problem()
+
+
+def _wide_bounds(ops, names, table=0):
+    """general_sweep_bounds under the entry names ``names`` (improve,
+    evaluate), with ``table`` bytes of spacing tables counted."""
+    bounds = general_sweep_bounds(ops)
+    return _bounds({new: (bounds[old]["bytes"] + table, bounds[old]["flops"])
+                    for new, old in zip(names, KERNELS[2:])})
+
+
+def phase_m1_five_controls(n=201):
+    """M.1 (outside the counted run): the du = 5 double integrator, without
+    and with its declarations, against the plain version by compare_sweep's
+    bars under both semantics; ms a sweep against the bound. Returns the max
+    differences of the general entries."""
     from c3sc_tpu_torch.ops import dense_backup as db
 
-    return {name: getattr(db, name) for name in KERNELS}
+    errs = dict.fromkeys(KERNELS[2:], 0.0)
+    for declared in (False, True):
+        prob = double_integrator_du5(declared)
+        grid = prob.default_grid(n)
+        ops = db.make_dense_operands(prob, grid, prob.control_candidates(3), DEVICE)
+        label = f"{prob.name} {n}^2, {ops.uc.shape[0]} candidates"
+        if not ops.general or prob.structured != declared:
+            raise AssertionError(f"{label}: du = 5 must take the general entries")
+        v = torch.as_tensor(np.random.default_rng(0).uniform(0, 5, grid.shape),
+                            dtype=torch.float32, device=DEVICE)
+        for sem, (clip, pin) in (("Pallas", (prob.value_bounds, True)),
+                                 ("dense_vi", (None, False))):
+            e = compare_sweep(ops, v, clip, pin, f"{label}, {sem} semantics", tag="M.1")
+            errs[KERNELS[2]], errs[KERNELS[3]] = (max(errs[KERNELS[2]], e[0]),
+                                                  max(errs[KERNELS[3]], e[1]))
+        _, pol = db.dense_backup(ops, v, with_policy=True)
+        ms = {KERNELS[2]: graph_ms(lambda: db.dense_backup(ops, v, with_policy=True)),
+              KERNELS[3]: graph_ms(lambda: db.dense_evaluate(ops, v, pol))}
+        bounds = general_sweep_bounds(ops)
+        for entry, t in ms.items():
+            b = bounds[entry]["bound_ms"]
+            log(f"[M.1] {label}: {entry} {t:.4f} ms a sweep (CUDA graph of 100); bound "
+                f"{b:.4f} ms ({bounds[entry]['bound_by']}): {100 * b / t:.1f} % of the bound")
+        del ops, v, pol
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_m2_nine_states(n=5):
+    """M.2 (outside the counted run): the wide entries on the nine-state
+    problem at n^9 (3 candidates), on the uniform grid and on a tanh grid of
+    the same shape, against the plain version by compare_sweep's bars under
+    both semantics; ms a sweep (CUDA graph of 100 launches), the plain
+    version's (a loop of 10), the bound. Returns (max differences, {entry:
+    the record of the kernels line})."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    prob = nine_states()
+    errs, record, ms = dict.fromkeys(WIDE, 0.0), {}, {}
+    for form, grid in (("uniform", prob.default_grid(n)), ("tanh", tanh_grid(prob, (n,) * 9))):
+        ops = db.make_dense_operands(prob, grid, prob.control_candidates(3), DEVICE)
+        label = f"{prob.name} {n}^9 {form}, {ops.uc.shape[0]} candidates"
+        if not ops.general:
+            raise AssertionError(f"{label}: nine states must take the general entries")
+        v = torch.as_tensor(np.random.default_rng(0).uniform(0, 5, grid.shape),
+                            dtype=torch.float32, device=DEVICE)
+        before = db.launch_counts()
+        for sem, (clip, pin) in (("Pallas", (prob.value_bounds, True)),
+                                 ("dense_vi", (None, False))):
+            e = compare_sweep(ops, v, clip, pin, f"{label}, {sem} semantics", tag="M.2")
+            errs[WIDE[0]], errs[WIDE[1]] = max(errs[WIDE[0]], e[0]), max(errs[WIDE[1]], e[1])
+        made = {k: c - before[k] for k, c in db.launch_counts().items()}
+        if made[WIDE[0]] == 0 or made[WIDE[1]] == 0 or made[KERNELS[2]] or made[KERNELS[3]]:
+            raise AssertionError(f"{label}: the sweeps launched {made}, not the wide entries")
+        _, pol = db.dense_backup(ops, v, with_policy=True)
+        calls = dict(backup_kernel=lambda: db.dense_backup(ops, v, with_policy=True),
+                     backup_plain=lambda: db.dense_backup_reference(ops, v, with_policy=True),
+                     evaluate_kernel=lambda: db.dense_evaluate(ops, v, pol),
+                     evaluate_plain=lambda: db.dense_evaluate_reference(ops, v, pol))
+        ms[form], eager = _kernel_and_plain_ms(calls, 10)
+        table = 0 if grid.uniform else 4 * 5 * sum(grid.shape)
+        bounds = _wide_bounds(ops, WIDE, table)
+        log(f"[M.2] {label}: per-sweep ms (kernels: a CUDA graph of 100 launches; plain: a loop "
+            "of 10 between one event pair): " + ", ".join(f"{k} {x:.4f}" for k, x in ms[form].items())
+            + "; kernels as an eager loop of 100: "
+            + ", ".join(f"{k} {x:.4f}" for k, x in eager.items()) + "; bounds "
+            + json.dumps(bounds))
+        for entry, key in zip(WIDE, ("backup", "evaluate")):
+            b, t = bounds[entry]["bound_ms"], ms[form][key + "_kernel"]
+            log(f"[M.2] {label}: {entry} {t:.4f} ms against its bound {b:.4f} ms "
+                f"({bounds[entry]['bound_by']}): {100 * b / t:.1f} % of the bound")
+            if form == "uniform":
+                record[entry] = {"ms": t, "plain_ms": ms[form][key + "_plain"], "bound_ms": b,
+                                 "bound_by": bounds[entry]["bound_by"]}
+            else:
+                record[entry].update(nonuniform_ms=t, nonuniform_bound_ms=b,
+                                     nonuniform_uniform_ms=ms["uniform"][key + "_kernel"],
+                                     nonuniform_at=label)
+        del ops, v, pol, calls
+        torch.cuda.empty_cache()
+    return errs, record
+
+
+def phase_m_solves():
+    """M on the main path (counted): dense_vi on the card against the CPU,
+    within 1e-4 x max|v|: the du = 5 double integrator at 21^2 (243
+    candidates) without and with its declarations (the general entries) and
+    the nine-state problem at 3^9 (the wide entries)."""
+    from c3sc_tpu_torch.solvers import dense_vi
+
+    for prob, n in ((double_integrator_du5(), 21), (double_integrator_du5(True), 21),
+                    (nine_states(), 3)):
+        grid = prob.default_grid(n)
+        uc = prob.control_candidates(3)
+        sols = {dev: dense_vi(prob, grid, controls=uc, tol=1e-6, max_outer=2000, device=dev)
+                for dev in (DEVICE, "cpu")}
+        ref = sols["cpu"].v
+        err = float((sols[DEVICE].v.cpu() - ref).abs().max() / ref.abs().max())
+        log(f"[M] dense_vi {prob.name} {n}^{prob.dx} ({len(uc)} candidates): card against CPU "
+            f"{err:.3e} x max|v| ({sols[DEVICE].sweeps} and {sols['cpu'].sweeps} sweeps, "
+            f"residual {sols[DEVICE].residual:.2e})")
+        if not (err <= PARITY_BAR and torch.isfinite(sols[DEVICE].v).all()):
+            raise AssertionError(f"dense_vi of {prob.name} on the card differs from the CPU: "
+                                 f"{err:.3e}")
+
+
+def phase_m_kernels():
+    """M.1 and M.2 (outside the counted run): (max differences, M.2's record)."""
+    errs = phase_m1_five_controls()
+    wide_errs, record = phase_m2_nine_states()
+    return {**errs, **wide_errs}, record
+
+
+def _entries():
+    """K1's six entries by name: the wrappers that count their launches."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    return {name: getattr(db, name) for name in ALL_KERNELS}
 
 
 def counted(label, fn, required=("dense_backup", "dense_evaluate"), totals=None):
-    """Run one path of the main run with K1's launch counts (all four
+    """Run one path of the main run with K1's launch counts (all six
     entries) set to 0 just before it and read just after; every kernel in
     ``required`` must have been launched. Adds the counts to ``totals``;
     returns fn()'s result."""
@@ -2987,13 +3224,24 @@ def main_entry_points_only():
     return 0
 
 
-USAGE = "usage: chip_smoke.py [--phases F | G | I | J | K | L | H [--seed N]]"
+def main_wide_only():
+    """Phases A, B and M."""
+    phase_a_environment()
+    phase_b_build()
+    t0 = time.perf_counter()
+    phase_m_kernels()
+    counted("M", phase_m_solves, required=KERNELS[2:] + WIDE)
+    log(f"[timing] phase M {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+USAGE = "usage: chip_smoke.py [--phases F | G | I | J | K | L | M | H [--seed N]]"
 
 
 def main():
     modes = {"F": main_fused_only, "G": main_control_only, "H": main_flagship_only,
              "I": main_models_only, "J": main_solvers_only, "K": main_entry_points_only,
-             "L": main_parallel_only}
+             "L": main_parallel_only, "M": main_wide_only}
     args = sys.argv[1:]
     if args:
         if len(args) not in (2, 4) or args[0] != "--phases" or args[1] not in modes:
@@ -3012,7 +3260,7 @@ def main():
     marks.append(("C", time.perf_counter()))
     # the main path's run, one path at a time: each counted() sets the counts
     # to 0 just before its path and reads them just after
-    totals = dict.fromkeys(KERNELS, 0)
+    totals = dict.fromkeys(ALL_KERNELS, 0)
 
     def dense_path():
         values = phase_d_solve()
@@ -3039,9 +3287,13 @@ def main():
     # phase L (parallel/) reaches no K1 entry: its counts are read and logged, none required
     counted("L", lambda: phase_l_parallel(fused), totals=totals, required=())
     marks.append(("L", time.perf_counter()))
-    errs = {name: max(errs.get(name, 0.0), i_errs[name], k_errs[name]) for name in KERNELS}
+    m_errs, wide = phase_m_kernels()
+    counted("M", phase_m_solves, totals=totals, required=KERNELS[2:] + WIDE)
+    marks.append(("M", time.perf_counter()))
+    errs = {name: max(errs.get(name, 0.0), i_errs.get(name, 0.0), k_errs.get(name, 0.0),
+                      m_errs.get(name, 0.0)) for name in ALL_KERNELS}
     launches = totals
-    log(f"[L] K1 launches from phase D through L: {launches}")
+    log(f"[M] K1 launches from phase D through M: {launches}")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:]))
         + f", total {time.perf_counter() - marks[0][1]:.1f}")
@@ -3050,7 +3302,9 @@ def main():
     # PyTorch call computes any of these sweeps, so there is no library time.
     # The nonuniform_* keys: K.1's times on tanh grids (the quadcopter 11^6, the
     # glider (15, 11, 11, 11)) beside the uniform grid of the same shape, and
-    # the launches of K.1's non-uniform solves on the main path
+    # the launches of K.1's non-uniform solves on the main path. The wide
+    # entries' times and bounds are M.2's, at the nine-state problem's 5^9 with
+    # 3 candidates, and its tanh grid's beside them
     at = {"dense_backup": (times[11], bounds[11]), "dense_evaluate": (times[11], bounds[11]),
           "dense_backup_general": (gen_times, gen_bounds),
           "dense_evaluate_general": (gen_times, gen_bounds)}
@@ -3065,6 +3319,12 @@ def main():
             ("dense_evaluate", "evaluate", "c3sc_tpu/solvers/dense.py:122"),
             ("dense_backup_general", "backup", "c3sc_tpu/ops/pallas_dense.py:107"),
             ("dense_evaluate_general", "evaluate", "c3sc_tpu/solvers/dense.py:122"))
+    ] + [
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name], **wide[name],
+         "library_ms": None, "nonuniform_launches": nu_launches[name]}
+        for name, replaces in ((WIDE[0], "c3sc_tpu/ops/pallas_dense.py:107"),
+                               (WIDE[1], "c3sc_tpu/solvers/dense.py:122"))
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

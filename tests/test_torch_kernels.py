@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: K1 (csrc/dense_backup.cu) against its
-plain PyTorch version (its structured entries and its general entries, on
-uniform and non-uniform grids), the refusals of its wrapper, and dense_vi
-and the local patch running through it. Every test here
+plain PyTorch version (its structured entries and its general entries, the
+latter also in their run-time-d form for d > 8, on uniform and non-uniform
+grids), the refusals of its wrapper, and dense_vi and the local patch
+running through it. Every test here
 needs a CUDA device and skips without one.
 
 Imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -14,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_testing import QUAD, TIE, V5, random_v, tanh_node_sets
+from torch_port_testing import (QUAD, TIE, V5, double_integrator_du5, nine_states, random_v,
+                                 tanh_node_sets)
 from c3sc_tpu_torch import models as tm
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 from c3sc_tpu_torch.convert import value_from_npz
@@ -316,6 +318,39 @@ def test_receding_horizon_replans_as_one_graph(cuda):
     torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-3, atol=1e-5)
 
 
+def test_dual_mode_rollout_on_card_matches_cpu(cuda):
+    """Dual-mode iLQR MPC (terminal_lqr=) on the 6D quadcopter with
+    tests/test_terminal.py's tilted surrogate value, half the samples
+    starting inside the basin: the card (replans as one CUDA graph, the
+    latch outside it) against the CPU, states within 1e-3 and costs within
+    1e-3 relative, as the pure-MPC test above."""
+    from c3sc_tpu_torch.sim import make_terminal_lqr, mpc_shoot
+
+    tp = tm.make_problem("quadcopter", **QUAD)
+    grid = tp.default_grid(9)
+    scale = np.asarray([2.0, 2.0, 1.0, 3.0, 3.0, 4.0], np.float32)
+    rng = np.random.default_rng(5)
+    x0 = np.concatenate([0.1 * rng.uniform(-1, 1, (4, 6)),
+                         0.3 * rng.uniform(0.5, 1, (4, 6)) * rng.choice([-1, 1], (4, 6))])
+    x0 = torch.as_tensor(x0 * scale, dtype=torch.float32)
+    noise = torch.randn((40, 8, tp.dw), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda):
+        sc = torch.as_tensor(scale, device=dev)
+
+        def vfn(p, sc=sc):
+            z = p / sc
+            return 8.0 * torch.sum(z * z, dim=-1) + 1.5 * z[..., 1]
+
+        out[str(dev)] = mpc_shoot.receding_horizon_rollout(
+            tp, grid, vfn, x0.to(dev), dt=0.01, n_steps=40, horizon=16, replan_every=4,
+            opt_iters=2, controls=tp.control_candidates(5), noise=noise.to(dev),
+            terminal_lqr=make_terminal_lqr(tp, dt=0.01, device=dev))
+    got, want = out[str(cuda)], out["cpu"]
+    assert (got.xs.cpu() - want.xs).abs().max() <= 1e-3
+    torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-3, atol=1e-5)
+
+
 def _bare(prob):
     """The problem with every structure declaration stripped."""
     return dataclasses.replace(prob, drift_f0=None, drift_G=None, sigma2_x=None, cost_q=None,
@@ -534,8 +569,80 @@ def test_a_graph_replay_runs_the_kernels_it_counts(cuda):
     added = {k: n - before[k] for k, n in db.launch_counts().items()}
     ran = dict.fromkeys(db.ENTRIES, 0)
     for e in prof.events():
-        m = re.search(r"\b(dense_(?:backup|evaluate)(?:_general)?)_kernel\b", e.name)
+        m = re.search(r"\b((?:wide_)?dense_(?:backup|evaluate)(?:_general)?)_kernel\b", e.name)
         if e.device_type == DeviceType.CUDA and m:
             ran[m.group(1)] += 1
     assert ran == added == {"dense_backup": 0, "dense_evaluate": 0,
-                            "dense_backup_general": 2, "dense_evaluate_general": 20}
+                            "dense_backup_general": 2, "dense_evaluate_general": 20,
+                            "wide_dense_backup_general": 0, "wide_dense_evaluate_general": 0}
+
+
+def _wide_cases():
+    return {
+        "nine-states": (nine_states, 4, 3),
+        "synthetic-10x5": (lambda: _synthetic_problem(10, 5), (3, 4, 2, 2, 4, 2, 2, 4, 2, 2), 2),
+    }
+
+
+@pytest.mark.parametrize("nonuniform", [False, True], ids=["uniform", "tanh"])
+@pytest.mark.parametrize("case", list(_wide_cases()))
+def test_wide_entries_match_plain_on_card(cuda, case, nonuniform):
+    """K1's run-time-d general kernels (d = 9 from C3Control; d = 10 with
+    five controls and all five declarations, periodic, absorbing and
+    reflecting faces) against the plain version under both semantics:
+    values within 2e-4, argmins off near-ties (TIE), the improve's policy
+    bit for bit gather_policy of its argmin, 64-bit offsets bit-equal to
+    32-bit, evaluate under the improve's own policy bit-equal to it. Every
+    launch counts on the wide entries, none on the compiled ones."""
+    make, n, n_cand = _wide_cases()[case]
+    tp = make()
+    grid = tp.default_grid(n)
+    if nonuniform:
+        grid = Grid.create(grid.lb, grid.ub, grid.shape, grid.periodic,
+                           nodes=tanh_node_sets(grid.lb, grid.ub, grid.shape, grid.periodic))
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
+    assert ops.general and grid.ndim > db.MAX_D
+    v = _random_v(grid.shape, cuda)
+    counts = lambda: (db.dense_backup_general.launches, db.dense_evaluate_general.launches,  # noqa: E731
+                      db.wide_dense_backup_general.launches, db.wide_dense_evaluate_general.launches)
+    before = counts()
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        got, pol = db.dense_backup(ops, v, clip, pin, with_policy=True)
+        want, wbest = db.dense_backup_reference(ops, v, clip, pin)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        top2 = torch.topk(db.candidate_rhs(ops, v, clip, pin), 2, dim=0, largest=False).values
+        near_tie = (top2[1] - top2[0]) <= TIE * top2[0].abs().clamp(min=1.0)
+        assert not torch.any((pol.best != wbest) & ~near_tie)
+        gathered = db.gather_policy(ops, pol.best)
+        for a, b in ((pol.fpol_k, gathered.fpol_k), (pol.s2pol_k, gathered.s2pol_k),
+                     (pol.gpol, gathered.gpol)):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+        wide, wide_pol = db.dense_backup(ops, v, clip, pin, with_policy=True, _wide_index=True)
+        assert torch.equal(wide, got) and torch.equal(wide_pol.best, pol.best)
+        if clip is None:
+            assert torch.equal(db.dense_evaluate(ops, v, pol), got)
+    torch.testing.assert_close(db.dense_evaluate(ops, v, wbest),
+                               db.dense_evaluate_reference(ops, v, wbest), rtol=2e-4, atol=2e-4)
+    assert torch.equal(db.dense_evaluate(ops, v, wbest, _wide_index=True),
+                       db.dense_evaluate(ops, v, wbest))
+    made = [a - b for a, b in zip(counts(), before)]
+    assert made == [0, 0, 4, 4]
+
+
+@pytest.mark.parametrize("case", ["du5", "du5-declared", "nine-states"])
+def test_wide_dense_vi_on_card_matches_cpu(cuda, case):
+    """dense_vi of the five-control double integrator at 21^2 (243
+    candidates; with and without the declarations) and of the nine-state
+    problem at 3^9 on the card, through K1's general entries, against the
+    same solve on the CPU: within 2e-4 of max|v|."""
+    tp, n, per_dim = {"du5": (double_integrator_du5(), 21, 3),
+                      "du5-declared": (double_integrator_du5(declared=True), 21, 3),
+                      "nine-states": (nine_states(), 3, 3)}[case]
+    grid = tp.default_grid(n)
+    uc = tp.control_candidates(per_dim)
+    entry = db.wide_dense_backup_general if grid.ndim > db.MAX_D else db.dense_backup_general
+    before = entry.launches
+    sol = dense_vi(tp, grid, controls=uc, tol=1e-6, max_outer=2000, chunk=50, device=cuda)
+    assert entry.launches - before == sol.sweeps
+    ref = dense_vi(tp, grid, controls=uc, tol=1e-6, max_outer=2000, chunk=50, device="cpu").v
+    assert (sol.v.cpu() - ref).abs().max() <= 2e-4 * ref.abs().max()

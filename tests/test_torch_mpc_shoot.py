@@ -109,10 +109,21 @@ def test_receding_horizon_rollout_matches_jax(pendulum41, planner):
     np.testing.assert_array_equal(got.alive.numpy(), np.asarray(want.alive))
 
 
-def test_no_terminal_lqr_path():
-    """The dual-mode terminal-LQR latch is not ported (it measured harmful)."""
-    assert "terminal_lqr" not in inspect.signature(tms.receding_horizon_rollout).parameters
-    assert "terminal_lqr" not in inspect.signature(tms._rh_rollout).parameters
+def test_terminal_lqr_defaults_to_pure_mpc(pendulum41):
+    """The dual-mode latch is off by default, as in the JAX package:
+    ``terminal_lqr`` exists and defaults to None, and with None the rollout
+    is bit-equal to one that omits it."""
+    jp, tp, jg, tg, uc, jvf, tvf, x0 = pendulum41
+    for fn in (tms.receding_horizon_rollout, tms._rh_rollout, jms.receding_horizon_rollout):
+        assert inspect.signature(fn).parameters["terminal_lqr"].default is None
+    noise = torch.as_tensor(np.random.default_rng(4).standard_normal((12, B, 1)),
+                            dtype=torch.float32)
+    kw = dict(dt=DT, n_steps=12, horizon=8, replan_every=4, opt_iters=2, controls=uc,
+              noise=noise)
+    omitted = tms.receding_horizon_rollout(tp, tg, tvf, torch.as_tensor(x0), **kw)
+    off = tms.receding_horizon_rollout(tp, tg, tvf, torch.as_tensor(x0), terminal_lqr=None, **kw)
+    for a, b in zip(omitted, off):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tms.receding_horizon_rollout(tm.make_problem("pendulum"), None, None,
                                      torch.zeros(2, 2), 0.01, 3, planner="adam",

@@ -90,6 +90,68 @@ def tanh_node_sets(lb, ub, shape, periodic):
             for lo, hi, n, p in zip(lb, ub, shape, periodic)]
 
 
+# ---- K1's wide problems: five controls, nine states ---------------------------------
+
+WIDE_SIGMA = 0.3   # the diffusion of both problems, on every state
+
+
+def _wide_diff(x, u):
+    """WIDE_SIGMA I [..., d, d] over the broadcast batch of x and u."""
+    batch = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+    return torch.diag_embed(x.new_full((*batch, x.shape[-1]), WIDE_SIGMA))
+
+
+def double_integrator_du5(declared=False):
+    """The port's double integrator driven by five inputs, built with
+    ``C3Control(dx=2, du=5, ...)``: x0' = x1, x1' = u0 + ... + u4, noise 0.3
+    on both states, cost |x|^2 + 0.1 |u|^2, reflecting faces, controls in
+    [-0.4, 0.4]. It has no structure declarations, so it takes K1's general
+    entries; ``declared`` adds all five, which a structured kernel (du <= 4)
+    cannot take either."""
+    import dataclasses
+
+    from c3sc_tpu_torch.control import C3Control
+
+    ctrl = (C3Control(dx=2, du=5, dw=2, lb=[-2.0, -2.0], ub=[2.0, 2.0], beta=0.5,
+                      ulb=[-0.4] * 5, uub=[0.4] * 5, name="double_integrator_du5")
+            .add_drift(lambda x, u: torch.stack(torch.broadcast_tensors(x[..., 1], u.sum(-1)),
+                                                -1))
+            .add_diff(_wide_diff)
+            .add_stagecost(lambda x, u: (x * x).sum(-1) + 0.1 * (u * u).sum(-1))
+            .set_external_boundary(0, "reflect").set_external_boundary(1, "reflect")
+            .set_value_bounds(0.0, 50.0))
+    prob = ctrl.problem()
+    if not declared:
+        return prob
+    return dataclasses.replace(
+        prob,
+        drift_f0=lambda x: torch.stack([x[..., 1], torch.zeros_like(x[..., 0])], -1),
+        drift_G=lambda x: torch.stack([torch.zeros_like(x[..., :1]).expand(*x.shape[:-1], 5),
+                                       torch.ones_like(x[..., :1]).expand(*x.shape[:-1], 5)],
+                                      -2),
+        sigma2_x=lambda x: torch.full_like(x, WIDE_SIGMA ** 2),
+        cost_q=lambda x: (x * x).sum(-1),
+        cost_r=lambda u: 0.1 * (u * u).sum(-1))
+
+
+def nine_states():
+    """The port's problem of nine states, built with ``C3Control(dx=9,
+    du=1, ...)``: x_j' = -x_j + u [j = 0], noise 0.3 on every state, cost
+    |x|^2 + 0.1 u^2, reflecting faces on [-1, 1]^9, u in [-1, 1]. K1 runs it
+    in the general entries' run-time-d form."""
+    from c3sc_tpu_torch.control import C3Control
+
+    ctrl = (C3Control(dx=9, du=1, dw=9, lb=[-1.0] * 9, ub=[1.0] * 9, beta=0.5,
+                      name="nine_states")
+            .add_drift(lambda x, u: torch.nn.functional.pad(u[..., :1], (0, 8)) - x)
+            .add_diff(_wide_diff)
+            .add_stagecost(lambda x, u: (x * x).sum(-1) + 0.1 * (u * u).sum(-1))
+            .set_value_bounds(0.0, 50.0))
+    for j in range(9):
+        ctrl.set_external_boundary(j, "reflect")
+    return ctrl.problem()
+
+
 # ---- ranks of a torch.distributed group, each a spawned process ---------------------
 
 RANK_TIMEOUT_S = 120.0   # a hung rank fails its test after this, instead of stalling the suite
