@@ -591,26 +591,58 @@ dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __rest
   vnew[n] = general_rhs<D, Idx>(f, g, nu, sp, vp, vm, Q0, A0, gcost, op.beta);
 }
 
-// ---- the general entries' run-time-d form: 8 < d <= kMaxDWide ----------------------
+// ---- the general entries' run-time-d form: kMaxD < d <= kMaxDWide -------------------
 //
-// A problem of more than eight states (and any structured problem beyond the
-// structured entries' d <= 8, du <= 4) takes the general entries; above
-// kMaxD they run these two kernels, whose d is a run-time value, rather than
-// more template instantiations: each D would add four kernels to a build that
-// already takes about a minute. The arithmetic is the compiled forms', step
-// for step (the same intrinsics in the same order), so a dim's terms round as
-// they do there. What changes is where the per-dim state lives: the neighbour
-// values v+-_j and the node's spacing-table entries are arrays of capacity
-// kMaxDWide indexed at run time, so they sit in local memory (each thread's
-// own, interleaved so that a warp's access of one j is one line, cached in
-// L1), and the operands fc, s2c, s2 are read dim by dim inside the loops
-// that use them, never held. At d >= 9 a candidate reads 4 d bytes of fc a
-// node, so the sweep is bound by device memory; the local arrays add L1
-// traffic, not device-memory traffic, while they stay in the cache. The grid
-// descriptor is WideGridDesc, whose arrays have kMaxDWide entries; it is
-// passed as a __grid_constant__ parameter, so that indexing it at run time
-// reads the parameter in place instead of copying it to every thread's
-// local memory. GridDesc and the compiled forms are unchanged.
+// Replaces, for grids of more than kMaxD dims, the XLA improve and evaluate
+// sweeps of c3sc_tpu/solvers/dense.py:106 and :122 and the any-callable
+// contract of the Pallas kernel (c3sc_tpu/ops/pallas_dense.py:66-86): JAX's
+// dense_vi takes any d. The arithmetic is the compiled forms', step for step
+// (the same intrinsics in the same order, the first index on ties), so at
+// the same d the two give the same bits; the wrappers' _runtime_d switch
+// sends a grid of d <= kMaxD here, and the card tests hold the two to it.
+//
+// What bounds it on this card is bytes. On the nine-state problem at 5^9
+// with 3 candidates (no declarations, so fc, s2c and gc are per candidate)
+// the improve reads 237 B a node (76 B a candidate, then v, t_mask, t_val)
+// and writes 84 B (vnew, best and the policy's 76 B): 321 B, 0.187 ms at
+// 3.35 TB/s, where its float32 operations take 0.02 ms. The evaluate moves
+// 93 B a node, 0.054 ms.
+//
+// The design. Two things keep such a kernel far from that bound: per-dim
+// state indexed at run time, which the compiler puts in local memory and a
+// candidate reads again from L2, and round trips to device memory that a
+// thread makes one after another. Measured on an H100 80GB HBM3 at 700 W
+// (experiments/torch_wide_variants.py, PERF.md):
+//   - State in registers. One thread a node, as in the compiled forms. The
+//     kernels are templates on a capacity DCAP with d <= DCAP a run-time
+//     value: every per-dim loop runs over j < DCAP, unrolled, with its body
+//     under j < d, so each array and each entry of the grid descriptor is
+//     indexed by a constant. Three capacities: 12 and 16 in registers (12
+//     because each register array is as long as the capacity: at d = 9 the
+//     capacity 16 took more registers a thread, fewer warps an SM, and 10-45 %
+//     more time), and kMaxDWide, whose state would spill from registers and
+//     lives in the block's shared memory instead.
+//   - Loads in flight. A node's own loads (t_mask, t_val, s2 or the policy's
+//     operands) are issued before the decode of its neighbours; the evaluate
+//     picks its result at the end instead of branching on t_mask and best
+//     first. The improve loads a candidate's 2 d + 1 operands before using
+//     any, and on a uniform grid candidate c + 1's while it computes c.
+//   - The epilogue loads all of the winner's lines before its first store:
+//     pol and op are not __restrict__, so a store may alias the next load,
+//     and store after load took 2 d + 1 round trips to L2 in a row. This
+//     alone took the pipelined improve from 0.33 to 0.27 ms at 5^9.
+//   - Non-uniform grids. The node's Spacing-table entries are read once a
+//     node, in the decode, and each dim keeps 1/h+, 1/h-, 1/(h+ h-) and
+//     cp v+ + cm v-, formed after the decode has issued every dim's loads
+//     (formed inside it, each dim waited for its own loads: the evaluate
+//     took 0.124 ms at 5^9 on a tanh grid against 0.086).
+// The grid descriptor is WideGridDesc, whose arrays have kMaxDWide entries,
+// passed as a __grid_constant__ parameter: indexed by constants, its entries
+// are operands of the instructions. The compiled forms keep GridDesc.
+constexpr int kWideCapSmall = 12;  // the run-time-d form's capacities: d <= 12,
+constexpr int kWideCapMid = 16;    // d <= 16 (both in registers), and kMaxDWide
+constexpr int kWideBlock = 128;    // threads a block of the run-time-d kernels (but kWideImproveBlock)
+
 template <typename Idx>
 struct WideGridDesc {
   int d;
@@ -633,161 +665,276 @@ C3SC_FN long long quotient(long long rem, const WideGridDesc<long long>& g, int 
 }
 
 // The per-dim state of one node: v at the +-1 neighbours, as the sweep reads
-// it, and (non-uniform grids) the node's entry of each dim's Spacing table.
+// it, and on a non-uniform grid what a candidate reads of the node's entry of
+// each dim's Spacing table: 1/h+, 1/h-, 1/(h+ h-) and w = cp v+ + cm v- (the
+// weight of s2 in A0, rounded as diffusion_terms rounds it). Up to
+// kWideCapMid it lives in registers (every index a constant once the loops
+// are unrolled); at kMaxDWide, where registers would spill, in the block's
+// dynamic shared memory, kWideState arrays of d x kWideBlock floats, each
+// thread a column (no bank conflicts).
+template <int DCAP>
+constexpr bool kWideShared = DCAP > kWideCapMid;
+template <int NU>
+constexpr int kWideState = NU == kNonuniform ? 6 : 2;  // arrays of per-dim state
+// The uniform improve of the register capacities loads candidate c + 1's
+// operands while it computes candidate c, and runs in blocks of 256 threads
+// (measured on the H100 at 5^9 with 3 candidates: 0.247 ms against 0.273 in
+// blocks of 128 and 0.363 without the pipelining). On a non-uniform grid the
+// improve's own state leaves no room for a second candidate's operands:
+// without the pipelining it ran 0.299 ms against 0.345.
+template <int DCAP, int NU>
+constexpr bool kWidePipelined = !kWideShared<DCAP> && NU == kUniform;
+template <int DCAP, int NU>
+constexpr int kWideImproveBlock = kWidePipelined<DCAP, NU> ? 256 : kWideBlock;
+
+template <int DCAP, int NU, bool SHARED = kWideShared<DCAP>>
 struct WideNode {
-  float vp[kMaxDWide];
-  float vm[kMaxDWide];
-  int row[kMaxDWide];
+  static constexpr int kNu = NU == kNonuniform ? DCAP : 1;
+  float vp_[DCAP], vm_[DCAP], ihp_[kNu], ihm_[kNu], cpm_[kNu], w_[kNu];
+  C3SC_FN explicit WideNode(int) {}
+  C3SC_FN float& vp(int j) { return vp_[j]; }
+  C3SC_FN float& vm(int j) { return vm_[j]; }
+  // the non-uniform terms (the uniform form's 1-entry arrays are never read)
+  C3SC_FN float& ihp(int j) { return ihp_[NU == kNonuniform ? j : 0]; }
+  C3SC_FN float& ihm(int j) { return ihm_[NU == kNonuniform ? j : 0]; }
+  C3SC_FN float& cpm(int j) { return cpm_[NU == kNonuniform ? j : 0]; }
+  C3SC_FN float& w(int j) { return w_[NU == kNonuniform ? j : 0]; }
 };
 
-template <typename Idx>
+C3SC_FN float* wide_shared_state() {
+  extern __shared__ float wide_state[];
+  return wide_state;
+}
+
+template <int DCAP, int NU>
+struct WideNode<DCAP, NU, true> {
+  float* col;  // this thread's column: array k, dim j at col[(k d + j) kWideBlock]
+  int plane;   // d kWideBlock
+  C3SC_FN explicit WideNode(int d)
+      : col(wide_shared_state() + threadIdx.x), plane(d * kWideBlock) {}
+  C3SC_FN float& at(int k, int j) { return col[k * plane + j * kWideBlock]; }
+  C3SC_FN float& vp(int j) { return at(0, j); }
+  C3SC_FN float& vm(int j) { return at(1, j); }
+  C3SC_FN float& ihp(int j) { return at(2, j); }
+  C3SC_FN float& ihm(int j) { return at(3, j); }
+  C3SC_FN float& cpm(int j) { return at(4, j); }
+  C3SC_FN float& w(int j) { return at(5, j); }
+};
+
+// v at the neighbours of node n (and the node's spacing terms) into w. The
+// decode loop only issues loads: a use of a loaded value there (the body is
+// a branch on j < d) would wait for that dim's loads before the next dim's
+// are issued, so the non-uniform terms are formed in a second loop.
+template <int DCAP, int NU, typename Idx>
 C3SC_FN void wide_neighbour_values(Idx n, const float* v, const uint8_t* t_mask,
                                    const float* t_val, const WideGridDesc<Idx>& g, int clip,
-                                   float lo, float hi, int pin, WideNode& w) {
+                                   float lo, float hi, int pin, WideNode<DCAP, NU>& w) {
+  float cm[NU == kNonuniform ? DCAP : 1];  // 1/(h- (h+ + h-)) until w is formed
   Idx rem = n;
-  for (int j = g.d - 1; j >= 0; --j) {
-    const Idx len = g.shape[j];
-    const Idx s = g.stride[j];
-    Idx i = rem;  // the outermost index is what is left
-    if (j > 0) {
-      const Idx quot = quotient(rem, g, j);
-      i = rem - quot * len;
-      rem = quot;
+#pragma unroll
+  for (int j = DCAP - 1; j >= 0; --j) {
+    if (j < g.d) {
+      const Idx len = g.shape[j];
+      const Idx s = g.stride[j];
+      Idx i = rem;  // the outermost index is what is left
+      if (j > 0) {
+        const Idx quot = quotient(rem, g, j);
+        i = rem - quot * len;
+        rem = quot;
+      }
+      const Idx up = (i + 1 < len) ? n + s : n - g.wrap[j];
+      const Idx dn = (i > 0) ? n - s : n + g.wrap[j];
+      float a = v[up], b = v[dn];
+      if (clip) {
+        a = fminf(fmaxf(a, lo), hi);
+        b = fminf(fmaxf(b, lo), hi);
+      }
+      if (pin) {
+        if (t_mask[up]) a = t_val[up];
+        if (t_mask[dn]) b = t_val[dn];
+      }
+      w.vp(j) = a;
+      w.vm(j) = b;
+      if (NU == kNonuniform) {
+        const float* e = g.nu + (long long)(g.toff[j] + (int)i) * kSpacingStride;
+        const float4 t = __ldg(reinterpret_cast<const float4*>(e));
+        w.ihp(j) = t.x;
+        w.ihm(j) = t.y;
+        w.cpm(j) = t.z;
+        w.w(j) = t.w;  // 1/(h+ (h+ + h-)) until w is formed
+        cm[NU == kNonuniform ? j : 0] = __ldg(e + 4);
+      }
     }
-    const Idx up = (i + 1 < len) ? n + s : n - g.wrap[j];
-    const Idx dn = (i > 0) ? n - s : n + g.wrap[j];
-    float a = v[up], b = v[dn];
-    if (clip) {
-      a = fminf(fmaxf(a, lo), hi);
-      b = fminf(fmaxf(b, lo), hi);
+  }
+  if (NU != kNonuniform) return;
+#pragma unroll
+  for (int j = 0; j < DCAP; ++j) {
+    if (j < g.d) {
+      w.w(j) = fmaf(w.w(j), w.vp(j), __fmul_rn(cm[NU == kNonuniform ? j : 0], w.vm(j)));
     }
-    if (pin) {
-      if (t_mask[up]) a = t_val[up];
-      if (t_mask[dn]) b = t_val[dn];
-    }
-    w.vp[j] = a;
-    w.vm[j] = b;
-    w.row[j] = g.toff[j] + (int)i;
   }
 }
 
-// The node's Spacing-table entry of dim j: 1/h+, 1/h-, 1/(h+ h-),
-// 1/(h+ (h+ + h-)), 1/(h- (h+ + h-)).
-template <typename Idx>
-C3SC_FN const float* wide_spacing(const WideGridDesc<Idx>& g, const WideNode& w, int j) {
-  return g.nu + (long long)w.row[j] * kSpacingStride;
+// x[at + j N] for j < d: the d component planes of a structure-of-arrays
+// operand, all loads issued before any value is used.
+template <int DCAP, typename Idx>
+C3SC_FN void wide_load_planes(const float* x, Idx at, Idx N, int d, float (&out)[DCAP]) {
+#pragma unroll
+  for (int j = 0; j < DCAP; ++j) out[j] = j < d ? x[at + (Idx)j * N] : 0.0f;
 }
 
-// diffusion_terms from the variances s2[at + j N], read dim by dim.
-template <typename Idx>
-C3SC_FN void wide_diffusion_terms(const float* s2, Idx at, Idx N, const WideGridDesc<Idx>& g,
-                                  bool nu, const WideNode& w, float& Q0, float& A0) {
+// diffusion_terms over the node's d dims from its variances s.
+template <int DCAP, int NU, typename Idx>
+C3SC_FN void wide_diffusion_terms(const float (&s)[DCAP], const WideGridDesc<Idx>& g,
+                                  WideNode<DCAP, NU>& w, float& Q0, float& A0) {
   float q0 = 0.0f, a0 = 0.0f;
-  for (int j = 0; j < g.d; ++j) {
-    const float s = s2[at + (Idx)j * N];
-    if (nu) {
-      const float* e = wide_spacing(g, w, j);
-      q0 = fmaf(s, __ldg(e + 2), q0);
-      a0 = fmaf(s, fmaf(__ldg(e + 3), w.vp[j], __fmul_rn(__ldg(e + 4), w.vm[j])), a0);
-    } else {
-      const float a = __fmul_rn(s, g.a_scale[j]);
-      q0 = fmaf(2.0f, a, q0);
-      a0 = fmaf(a, __fadd_rn(w.vp[j], w.vm[j]), a0);
+#pragma unroll
+  for (int j = 0; j < DCAP; ++j) {
+    if (j < g.d) {
+      if (NU == kNonuniform) {
+        q0 = fmaf(s[j], w.cpm(j), q0);
+        a0 = fmaf(s[j], w.w(j), a0);
+      } else {
+        const float a = __fmul_rn(s[j], g.a_scale[j]);
+        q0 = fmaf(2.0f, a, q0);
+        a0 = fmaf(a, __fadd_rn(w.vp(j), w.vm(j)), a0);
+      }
     }
   }
   Q0 = __fadd_rn(q0, 1e-10f);
   A0 = a0;
 }
 
-// general_rhs from the drift f[at + j N], read dim by dim.
-template <typename Idx>
-C3SC_FN float wide_general_rhs(const float* f, Idx at, Idx N, const WideGridDesc<Idx>& g,
-                               bool nu, const WideNode& w, float Q0, float A0, float gcost,
+// general_rhs over the node's d dims from the drift f.
+template <int DCAP, int NU, typename Idx>
+C3SC_FN float wide_general_rhs(const float (&f)[DCAP], const WideGridDesc<Idx>& g,
+                               WideNode<DCAP, NU>& w, float Q0, float A0, float gcost,
                                float beta) {
   float Q = Q0;
   float S = 0.0f;
-  for (int j = 0; j < g.d; ++j) {
-    const float fj = f[at + (Idx)j * N];
-    const float fh = __fmul_rn(
-        fj, nu ? __ldg(wide_spacing(g, w, j) + (fj > 0.0f ? 0 : 1)) : g.ih[j]);
-    const float af = fabsf(fh);
-    Q = __fadd_rn(Q, af);
-    S = fmaf(af, fh > 0.0f ? w.vp[j] : w.vm[j], S);
+#pragma unroll
+  for (int j = 0; j < DCAP; ++j) {
+    if (j < g.d) {
+      const float ih = NU == kNonuniform ? (f[j] > 0.0f ? w.ihp(j) : w.ihm(j)) : g.ih[j];
+      const float fh = __fmul_rn(f[j], ih);
+      const float af = fabsf(fh);
+      Q = __fadd_rn(Q, af);
+      S = fmaf(af, fh > 0.0f ? w.vp(j) : w.vm(j), S);
+    }
   }
   const float dt = __frcp_rn(Q);
   const float e = expf(__fmul_rn(-beta, dt));
   return __fmul_rn(dt, fmaf(e, __fadd_rn(A0, S), gcost));
 }
 
-// dense_backup_general_kernel with a run-time d.
-template <int NU, typename Idx>
-__global__ void __launch_bounds__(kBlock)
+// dense_backup_general_kernel with a run-time d <= DCAP. The node's own
+// loads (t_mask, t_val, q, s2) are issued before the neighbours' decode.
+template <int DCAP, int NU, typename Idx>
+__global__ void __launch_bounds__(kWideImproveBlock<DCAP, NU>)
 wide_dense_backup_general_kernel(const float* __restrict__ v, GeneralOperands op,
                                  PolicyOperands pol, const __grid_constant__ WideGridDesc<Idx> g,
                                  long long N, int clip, float lo, float hi, int pin,
                                  float* __restrict__ vnew, int32_t* __restrict__ best) {
-  const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
+  const Idx n = (Idx)blockIdx.x * kWideImproveBlock<DCAP, NU> + threadIdx.x;
   if (n >= (Idx)N) return;
-  constexpr bool nu = NU == kNonuniform;
+  const int d = g.d;
   const Idx nn = (Idx)N;
-  const Idx plane = (Idx)g.d * nn;  // floats of one candidate's [d, N] operands
-  WideNode w;
-  wide_neighbour_values<Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, w);
+  const Idx plane = (Idx)d * nn;  // floats of one candidate's [d, N] operands
+  const bool term = op.t_mask[n] != 0;
+  const float tval = op.t_val[n];
+  float s[DCAP], f[DCAP], gc = 0.0f;
   float Q0n = 0.0f, A0n = 0.0f, q = 0.0f;
-  if (op.s2 != nullptr) wide_diffusion_terms<Idx>(op.s2, n, nn, g, nu, w, Q0n, A0n);
+  if (op.s2 != nullptr) wide_load_planes<DCAP, Idx>(op.s2, n, nn, d, s);
   if (op.q != nullptr) q = op.q[n];
+  WideNode<DCAP, NU> w(d);
+  wide_neighbour_values<DCAP, NU, Idx>(n, v, op.t_mask, op.t_val, g, clip, lo, hi, pin, w);
+  if (op.s2 != nullptr) wide_diffusion_terms<DCAP, NU, Idx>(s, g, w, Q0n, A0n);
   float best_v = 3.4e38f;
   int best_c = 0;
-  for (int c = 0; c < op.C; ++c) {
+  // candidate c's operands into (fc, s2c, g)
+  auto load = [&](int c, float (&fc)[DCAP], float (&s2c)[DCAP], float& gcc) {
     const Idx at = (Idx)c * plane + n;
+    wide_load_planes<DCAP, Idx>(op.fc, at, nn, d, fc);
+    if (op.s2c != nullptr) wide_load_planes<DCAP, Idx>(op.s2c, at, nn, d, s2c);
+    if (op.gc != nullptr) gcc = op.gc[(Idx)c * nn + n];
+  };
+  auto consider = [&](int c) {  // candidate c from f, s, gc
     float Q0 = Q0n, A0 = A0n;
-    if (op.s2c != nullptr) wide_diffusion_terms<Idx>(op.s2c, at, nn, g, nu, w, Q0, A0);
-    const float gcost = op.gc != nullptr ? op.gc[(Idx)c * nn + n] : __fadd_rn(op.r[c], q);
-    const float rhs = wide_general_rhs<Idx>(op.fc, at, nn, g, nu, w, Q0, A0, gcost, op.beta);
+    if (op.s2c != nullptr) wide_diffusion_terms<DCAP, NU, Idx>(s, g, w, Q0, A0);
+    const float gcost = op.gc != nullptr ? gc : __fadd_rn(op.r[c], q);
+    const float rhs = wide_general_rhs<DCAP, NU, Idx>(f, g, w, Q0, A0, gcost, op.beta);
     if (rhs < best_v) {
       best_v = rhs;
       best_c = c;
     }
+  };
+  if constexpr (!kWidePipelined<DCAP, NU>) {
+    for (int c = 0; c < op.C; ++c) {
+      load(c, f, s, gc);
+      consider(c);
+    }
+  } else {
+    float fn[DCAP], sn[DCAP], gn = 0.0f;  // the next candidate's operands, in flight
+    load(0, fn, sn, gn);
+    for (int c = 0; c < op.C; ++c) {
+#pragma unroll
+      for (int j = 0; j < DCAP; ++j) {
+        f[j] = fn[j];
+        if (op.s2c != nullptr) s[j] = sn[j];
+      }
+      gc = gn;
+      if (c + 1 < op.C) load(c + 1, fn, sn, gn);
+      consider(c);
+    }
   }
   if (clip) best_v = fminf(fmaxf(best_v, lo), hi);
-  vnew[n] = op.t_mask[n] ? op.t_val[n] : best_v;
+  vnew[n] = term ? tval : best_v;
   best[n] = best_c;
-  if (pol.f != nullptr) {  // the warp read the winner's lines in the loop: L1 or L2 hits
-    const Idx at = (Idx)best_c * plane + n;
-    for (int j = 0; j < g.d; ++j) pol.f[(Idx)j * nn + n] = op.fc[at + (Idx)j * nn];
+  if (pol.f != nullptr) {
+    // The warp read the winner's lines in the loop: L1 or L2 hits. All of
+    // them are loaded before the first store, which the compiler may not
+    // move a load across (pol and op are not __restrict__).
+    load(best_c, f, s, gc);
+#pragma unroll
+    for (int j = 0; j < DCAP; ++j)
+      if (j < d) pol.f[(Idx)j * nn + n] = f[j];
     if (pol.s2 != nullptr) {
-      for (int j = 0; j < g.d; ++j) pol.s2[(Idx)j * nn + n] = op.s2c[at + (Idx)j * nn];
+#pragma unroll
+      for (int j = 0; j < DCAP; ++j)
+        if (j < d) pol.s2[(Idx)j * nn + n] = s[j];
     }
-    if (pol.g != nullptr) pol.g[n] = op.gc[(Idx)best_c * nn + n];
+    if (pol.g != nullptr) pol.g[n] = gc;
   }
 }
 
-// dense_evaluate_general_kernel with a run-time d.
-template <int NU, typename Idx>
-__global__ void __launch_bounds__(kBlock)
+// dense_evaluate_general_kernel with a run-time d <= DCAP. Every load of
+// the node's own operands is issued first, whether or not the node is
+// terminal or its policy index valid, and the result is picked at the end:
+// one round trip to device memory a node instead of three in a row.
+template <int DCAP, int NU, typename Idx>
+__global__ void __launch_bounds__(kWideBlock)
 wide_dense_evaluate_general_kernel(const float* __restrict__ v, const int32_t* __restrict__ best,
                                    GeneralOperands op, PolicyOperands pol,
                                    const __grid_constant__ WideGridDesc<Idx> g, long long N,
                                    float* __restrict__ vnew) {
-  const Idx n = (Idx)blockIdx.x * kBlock + threadIdx.x;
+  const Idx n = (Idx)blockIdx.x * kWideBlock + threadIdx.x;
   if (n >= (Idx)N) return;
-  if (op.t_mask[n]) {
-    vnew[n] = op.t_val[n];
-    return;
-  }
-  const int c = best[n];
-  if (c < 0 || c >= op.C) {  // make a bad policy index visible, never read past r
-    vnew[n] = nanf("");
-    return;
-  }
-  constexpr bool nu = NU == kNonuniform;
+  const int d = g.d;
   const Idx nn = (Idx)N;
-  float Q0, A0;
-  WideNode w;
-  wide_neighbour_values<Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, w);
-  wide_diffusion_terms<Idx>(pol.s2 != nullptr ? pol.s2 : op.s2, n, nn, g, nu, w, Q0, A0);
-  const float gcost = pol.g != nullptr ? pol.g[n] : __fadd_rn(__ldg(op.r + c), op.q[n]);
-  vnew[n] = wide_general_rhs<Idx>(pol.f, n, nn, g, nu, w, Q0, A0, gcost, op.beta);
+  const bool term = op.t_mask[n] != 0;
+  const float tval = op.t_val[n];
+  const int c = best[n];
+  float s[DCAP], f[DCAP], Q0, A0;
+  wide_load_planes<DCAP, Idx>(pol.s2 != nullptr ? pol.s2 : op.s2, n, nn, d, s);
+  wide_load_planes<DCAP, Idx>(pol.f, n, nn, d, f);
+  const float gn = pol.g != nullptr ? pol.g[n] : op.q[n];
+  WideNode<DCAP, NU> w(d);
+  wide_neighbour_values<DCAP, NU, Idx>(n, v, op.t_mask, op.t_val, g, 0, 0.0f, 0.0f, 0, w);
+  const bool bad = c < 0 || c >= op.C;  // make a bad policy index visible, never read past r
+  wide_diffusion_terms<DCAP, NU, Idx>(s, g, w, Q0, A0);
+  const float gcost = pol.g != nullptr ? gn : __fadd_rn(__ldg(op.r + (bad ? 0 : c)), gn);
+  const float rhs = wide_general_rhs<DCAP, NU, Idx>(f, g, w, Q0, A0, gcost, op.beta);
+  vnew[n] = term ? tval : bad ? nanf("") : rhs;
 }
 
 // ---- host side ---------------------------------------------------------------------
@@ -942,6 +1089,7 @@ struct GeneralCall {
   float lo, hi;
   int pin;
   int wide;
+  int runtime_d;  // run the run-time-d form at any d (a test's switch; d > kMaxD takes it anyway)
   cudaStream_t stream;
   int preload;
 };
@@ -978,34 +1126,65 @@ cudaError_t run_general(const GeneralCall& c, long long N) {
   return run_general_form<D, uint32_t>(c, N);
 }
 
-template <int NU, typename Idx>
+// Bytes of dynamic shared memory a block of the run-time-d kernels takes.
+template <int DCAP, int NU>
+int wide_shared_bytes(int d) {
+  return kWideShared<DCAP> ? kWideState<NU> * d * kWideBlock * (int)sizeof(float) : 0;
+}
+
+// Lets the shared-memory capacity's kernels take their state at every
+// d <= kMaxDWide (above 48 KB a block). Outside a stream capture only: the
+// preload before a capture sets it.
+template <typename K>
+cudaError_t allow_wide_shared(K kernel, int bytes, cudaStream_t stream) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
+  if (stream != nullptr) cudaStreamIsCapturing(stream, &capturing);
+  if (capturing != cudaStreamCaptureStatusNone) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DCAP, int NU, typename Idx>
 cudaError_t launch_general_wide(const GeneralCall& c, long long N) {
-  if (c.preload)
-    return preload_kernels(wide_dense_backup_general_kernel<NU, Idx>,
-                           wide_dense_evaluate_general_kernel<NU, Idx>);
+  auto improve = wide_dense_backup_general_kernel<DCAP, NU, Idx>;
+  auto evaluate = wide_dense_evaluate_general_kernel<DCAP, NU, Idx>;
+  const int smem = wide_shared_bytes<DCAP, NU>(c.preload ? kMaxDWide : c.d);
+  cudaError_t err = allow_wide_shared(improve, smem, c.stream);
+  if (err == cudaSuccess) err = allow_wide_shared(evaluate, smem, c.stream);
+  if (err != cudaSuccess) return err;
+  if (c.preload) return preload_kernels(improve, evaluate);
   WideGridDesc<Idx> g;
   make_desc(c.d, c.shape, c.h, c.periodic, c.nu, &g);
   g.d = c.d;
-  const unsigned blocks = (unsigned)((N + kBlock - 1) / kBlock);
   if (c.best_in == nullptr) {
-    wide_dense_backup_general_kernel<NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
+    constexpr int block = kWideImproveBlock<DCAP, NU>;
+    improve<<<(unsigned)((N + block - 1) / block), block, smem, c.stream>>>(
         c.v, c.op, c.pol, g, N, c.clip, c.lo, c.hi, c.pin, c.vnew, c.best_out);
   } else {
-    wide_dense_evaluate_general_kernel<NU, Idx><<<blocks, kBlock, 0, c.stream>>>(
+    evaluate<<<(unsigned)((N + kWideBlock - 1) / kWideBlock), kWideBlock, smem, c.stream>>>(
         c.v, c.best_in, c.op, c.pol, g, N, c.vnew);
   }
   return cudaGetLastError();
 }
 
-// The run-time-d form (kMaxD < d <= kMaxDWide): the index width and the
-// stencil's form as in run_general.
-cudaError_t run_general_wide(const GeneralCall& c, long long N) {
+template <int DCAP>
+cudaError_t run_general_wide_cap(const GeneralCall& c, long long N) {
   const bool wide = c.wide || (long long)c.op.C * c.d * N >= (1LL << 31);
   if (c.nu != nullptr)
-    return wide ? launch_general_wide<kNonuniform, long long>(c, N)
-                : launch_general_wide<kNonuniform, uint32_t>(c, N);
-  return wide ? launch_general_wide<kUniform, long long>(c, N)
-              : launch_general_wide<kUniform, uint32_t>(c, N);
+    return wide ? launch_general_wide<DCAP, kNonuniform, long long>(c, N)
+                : launch_general_wide<DCAP, kNonuniform, uint32_t>(c, N);
+  return wide ? launch_general_wide<DCAP, kUniform, long long>(c, N)
+              : launch_general_wide<DCAP, kUniform, uint32_t>(c, N);
+}
+
+// The run-time-d form (kMaxD < d <= kMaxDWide, or any d under runtime_d):
+// the smallest capacity that holds d; the index width and the stencil's
+// form as in run_general.
+cudaError_t run_general_wide(const GeneralCall& c, long long N) {
+  if (c.d <= kWideCapSmall) return run_general_wide_cap<kWideCapSmall>(c, N);
+  if (c.d <= kWideCapMid) return run_general_wide_cap<kWideCapMid>(c, N);
+  if (c.d <= kMaxDWide) return run_general_wide_cap<kMaxDWide>(c, N);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch_general(const GeneralCall& c) {
@@ -1024,6 +1203,7 @@ cudaError_t dispatch_general(const GeneralCall& c) {
                   (pol.g == nullptr) != (op.gc == nullptr)))
       return cudaErrorInvalidValue;
   }
+  if (c.runtime_d) return run_general_wide(c, N);
   switch (c.d) {
     case 1: return run_general<1>(c, N);
     case 2: return run_general<2>(c, N);
@@ -1074,35 +1254,39 @@ int c3sc_dense_evaluate(const float* v, const int32_t* best, const float* f0, co
 // One improve sweep of the general form: fc [C,d,N]; s2 [d,N] or s2c [C,d,N];
 // q [N] with r [C], or gc [C,N]; the absent ones null. Where fpol is not null
 // the winner's operands go to fpol [d,N], s2pol [d,N] (where s2c is given)
-// and gpol [N] (where gc is). nu as in c3sc_dense_backup.
+// and gpol [N] (where gc is). nu as in c3sc_dense_backup. runtime_d runs the
+// run-time-d form also at d <= kMaxD.
 int c3sc_dense_backup_general(const float* v, const float* fc, const float* s2,
                               const float* s2c, const float* q, const float* r,
                               const float* gc, const uint8_t* t_mask, const float* t_val,
                               float* vnew, int32_t* best, float* fpol, float* s2pol, float* gpol,
                               int d, int C, const long long* shape, const float* h,
                               const int* periodic, const float* nu, float beta, int clip,
-                              float lo, float hi, int pin_input, int wide, void* stream) {
+                              float lo, float hi, int pin_input, int wide, int runtime_d,
+                              void* stream) {
   const GeneralCall c{v, nullptr, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta},
                       {fpol, s2pol, gpol}, vnew, best, d, shape, h, periodic, nu, clip, lo, hi,
-                      pin_input, wide, (cudaStream_t)stream, 0};
+                      pin_input, wide, runtime_d, (cudaStream_t)stream, 0};
   return (int)dispatch_general(c);
 }
 
 // One fixed-policy sweep of the general form under the policy (best, fpol,
-// s2pol, gpol) that an improve sweep's epilogue wrote, or a gather of it.
+// s2pol, gpol) that an improve sweep's epilogue wrote, or a gather of it;
+// runtime_d as in c3sc_dense_backup_general.
 int c3sc_dense_evaluate_general(const float* v, const int32_t* best, const float* fpol,
                                 const float* s2pol, const float* gpol, const float* fc,
                                 const float* s2, const float* s2c, const float* q,
                                 const float* r, const float* gc, const uint8_t* t_mask,
                                 const float* t_val, float* vnew, int d, int C,
                                 const long long* shape, const float* h, const int* periodic,
-                                const float* nu, float beta, int wide, void* stream) {
+                                const float* nu, float beta, int wide, int runtime_d,
+                                void* stream) {
   if (best == nullptr) return (int)cudaErrorInvalidValue;
   const GeneralCall c{v, best, {fc, s2, s2c, q, r, gc, t_mask, t_val, C, beta},
                       {const_cast<float*>(fpol), const_cast<float*>(s2pol),
                        const_cast<float*>(gpol)},
                       vnew, nullptr, d, shape, h, periodic, nu, 0, 0.0f, 0.0f, 0, wide,
-                      (cudaStream_t)stream, 0};
+                      runtime_d, (cudaStream_t)stream, 0};
   return (int)dispatch_general(c);
 }
 

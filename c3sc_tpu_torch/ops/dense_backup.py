@@ -430,9 +430,10 @@ def _lib() -> ctypes.CDLL:
     lib.c3sc_dense_evaluate.argtypes = [ptr] * 11 + [i32] * 3 + desc + [f32, i32, ptr]
     lib.c3sc_dense_evaluate.restype = i32
     lib.c3sc_dense_backup_general.argtypes = ([ptr] * 14 + [i32] * 2 + desc
-                                              + [f32, i32, f32, f32, i32, i32, ptr])
+                                              + [f32, i32, f32, f32, i32, i32, i32, ptr])
     lib.c3sc_dense_backup_general.restype = i32
-    lib.c3sc_dense_evaluate_general.argtypes = [ptr] * 14 + [i32] * 2 + desc + [f32, i32, ptr]
+    lib.c3sc_dense_evaluate_general.argtypes = ([ptr] * 14 + [i32] * 2 + desc
+                                                + [f32, i32, i32, ptr])
     lib.c3sc_dense_evaluate_general.restype = i32
     lib.c3sc_dense_preload.argtypes = [i32] * 3 + desc
     lib.c3sc_dense_preload.restype = i32
@@ -594,7 +595,8 @@ def _ptr(t):
 
 
 def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
-                         with_policy: bool = False, _wide_index: bool = False):
+                         with_policy: bool = False, _wide_index: bool = False,
+                         _runtime_d: bool = False):
     """One improve sweep on general operands (a problem without all five
     declarations, or beyond the structured kernels' limits): (vnew
     [*grid.shape] f32, best [N] int32), with ``dense_backup``'s ``clip`` and
@@ -609,14 +611,16 @@ def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = Fal
     (``dense_backup_general.launches`` counts those launches), or, on a grid
     of more than ``MAX_D`` dims, ``wide_dense_backup_general``. 64-bit
     offsets are taken when C d N >= 2^31; ``_wide_index`` forces them.
+    ``_runtime_d`` is the tests' switch that sends a grid of at most
+    ``MAX_D`` dims to ``wide_dense_backup_general`` too (ignored on the CPU).
     """
     if v.device.type == "cpu":
         return dense_backup_reference(ops, v, clip, pin_input, with_policy)
     _require_cuda(v, "dense_backup_general")
     _require_general(ops, "dense_backup_general")
-    if ops.grid.ndim > MAX_D:
+    if ops.grid.ndim > MAX_D or _runtime_d:
         return wide_dense_backup_general(ops, v, clip, pin_input, with_policy=with_policy,
-                                         _wide_index=_wide_index)
+                                         _wide_index=_wide_index, _runtime_d=_runtime_d)
     out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index)
     dense_backup_general.launches += 1
     return out
@@ -626,17 +630,19 @@ dense_backup_general.launches = 0
 
 
 def wide_dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
-                              with_policy: bool = False, _wide_index: bool = False):
-    """``dense_backup_general`` on a grid of ``MAX_D < d <= MAX_D_WIDE`` dims:
-    the kernel's run-time-d form (``wide_dense_backup_general.launches``
-    counts its launches). CPU tensors take the plain version. More than
-    ``MAX_D_WIDE`` dims raise ValueError."""
+                              with_policy: bool = False, _wide_index: bool = False,
+                              _runtime_d: bool = False):
+    """``dense_backup_general`` on a grid of ``MAX_D < d <= MAX_D_WIDE`` dims
+    (with ``_runtime_d``, of any ``d <= MAX_D_WIDE``): the kernel's
+    run-time-d form (``wide_dense_backup_general.launches`` counts its
+    launches). CPU tensors take the plain version. More than ``MAX_D_WIDE``
+    dims raise ValueError."""
     if v.device.type == "cpu":
         return dense_backup_reference(ops, v, clip, pin_input, with_policy)
     _require_cuda(v, "wide_dense_backup_general")
     _require_general(ops, "wide_dense_backup_general")
-    _require_wide(ops, "wide_dense_backup_general")
-    out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index)
+    _require_wide(ops, "wide_dense_backup_general", _runtime_d)
+    out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index, True)
     wide_dense_backup_general.launches += 1
     return out
 
@@ -644,8 +650,10 @@ def wide_dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool 
 wide_dense_backup_general.launches = 0
 
 
-def _launch_backup_general(ops: DenseOperands, v, clip, pin_input, with_policy, wide_index):
-    """Launch the general improve kernel (the library picks the form by d)."""
+def _launch_backup_general(ops: DenseOperands, v, clip, pin_input, with_policy, wide_index,
+                           runtime_d=False):
+    """Launch the general improve kernel (the library picks the form by d;
+    ``runtime_d`` takes the run-time-d form at any d)."""
     ptrs, scalars = _kernel_inputs(ops, v)
     N, d = ops.x.shape
     vnew = torch.empty(N, dtype=torch.float32, device=v.device)
@@ -658,12 +666,12 @@ def _launch_backup_general(ops: DenseOperands, v, clip, pin_input, with_policy, 
     lo, hi = (float(clip[0]), float(clip[1])) if clip is not None else (0.0, 0.0)
     _launch("c3sc_dense_backup_general", v, v.data_ptr(), *ptrs, vnew.data_ptr(),
             best.data_ptr(), _ptr(pol.fpol_k), _ptr(pol.s2pol_k), _ptr(pol.gpol), *scalars,
-            int(clip is not None), lo, hi, int(pin_input), int(wide_index))
+            int(clip is not None), lo, hi, int(pin_input), int(wide_index), int(runtime_d))
     return vnew.view(ops.grid.shape), (pol if with_policy else best)
 
 
 def dense_evaluate_general(ops: DenseOperands, v, policy: Union[DensePolicy, torch.Tensor], *,
-                           _wide_index: bool = False):
+                           _wide_index: bool = False, _runtime_d: bool = False):
     """One fixed-policy sweep on general operands under ``policy`` (a
     ``DensePolicy``, or candidate indices best [N] int32, which are gathered
     first with ``gather_policy``): vnew [*grid.shape], pinned on terminal
@@ -671,14 +679,16 @@ def dense_evaluate_general(ops: DenseOperands, v, policy: Union[DensePolicy, tor
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``dense_evaluate_general.launches`` counts those launches), or, on a
-    grid of more than ``MAX_D`` dims, ``wide_dense_evaluate_general``.
+    grid of more than ``MAX_D`` dims (or with ``_runtime_d``, as in
+    ``dense_backup_general``), ``wide_dense_evaluate_general``.
     """
     if v.device.type == "cpu":
         return dense_evaluate_reference(ops, v, policy)
     _require_cuda(v, "dense_evaluate_general")
     _require_general(ops, "dense_evaluate_general")
-    if ops.grid.ndim > MAX_D:
-        return wide_dense_evaluate_general(ops, v, policy, _wide_index=_wide_index)
+    if ops.grid.ndim > MAX_D or _runtime_d:
+        return wide_dense_evaluate_general(ops, v, policy, _wide_index=_wide_index,
+                                           _runtime_d=_runtime_d)
     out = _launch_evaluate_general(ops, v, policy, _wide_index)
     dense_evaluate_general.launches += 1
     return out
@@ -689,16 +699,17 @@ dense_evaluate_general.launches = 0
 
 def wide_dense_evaluate_general(ops: DenseOperands, v,
                                 policy: Union[DensePolicy, torch.Tensor], *,
-                                _wide_index: bool = False):
+                                _wide_index: bool = False, _runtime_d: bool = False):
     """``dense_evaluate_general`` on a grid of ``MAX_D < d <= MAX_D_WIDE``
-    dims: the kernel's run-time-d form (``wide_dense_evaluate_general.launches``
-    counts its launches). CPU tensors take the plain version."""
+    dims (with ``_runtime_d``, of any ``d <= MAX_D_WIDE``): the kernel's
+    run-time-d form (``wide_dense_evaluate_general.launches`` counts its
+    launches). CPU tensors take the plain version."""
     if v.device.type == "cpu":
         return dense_evaluate_reference(ops, v, policy)
     _require_cuda(v, "wide_dense_evaluate_general")
     _require_general(ops, "wide_dense_evaluate_general")
-    _require_wide(ops, "wide_dense_evaluate_general")
-    out = _launch_evaluate_general(ops, v, policy, _wide_index)
+    _require_wide(ops, "wide_dense_evaluate_general", _runtime_d)
+    out = _launch_evaluate_general(ops, v, policy, _wide_index, True)
     wide_dense_evaluate_general.launches += 1
     return out
 
@@ -706,8 +717,9 @@ def wide_dense_evaluate_general(ops: DenseOperands, v,
 wide_dense_evaluate_general.launches = 0
 
 
-def _launch_evaluate_general(ops: DenseOperands, v, policy, wide_index):
-    """Launch the general evaluate kernel (the library picks the form by d)."""
+def _launch_evaluate_general(ops: DenseOperands, v, policy, wide_index, runtime_d=False):
+    """Launch the general evaluate kernel (the library picks the form by d;
+    ``runtime_d`` takes the run-time-d form at any d)."""
     ptrs, scalars = _kernel_inputs(ops, v)
     if not isinstance(policy, DensePolicy):
         _check_policy(v, policy)
@@ -716,11 +728,11 @@ def _launch_evaluate_general(ops: DenseOperands, v, policy, wide_index):
     vnew = torch.empty(v.numel(), dtype=torch.float32, device=v.device)
     _launch("c3sc_dense_evaluate_general", v, v.data_ptr(), policy.best.data_ptr(),
             _ptr(policy.fpol_k), _ptr(policy.s2pol_k), _ptr(policy.gpol), *ptrs,
-            vnew.data_ptr(), *scalars, int(wide_index))
+            vnew.data_ptr(), *scalars, int(wide_index), int(runtime_d))
     return vnew.view(ops.grid.shape)
 
 
-def _require_wide(ops: DenseOperands, name):
-    if ops.grid.ndim <= MAX_D:
+def _require_wide(ops: DenseOperands, name, runtime_d=False):
+    if ops.grid.ndim <= MAX_D and not runtime_d:
         raise ValueError(f"{name}: grids of more than {MAX_D} dims; the general entry takes "
                          f"d <= {MAX_D}")

@@ -25,7 +25,11 @@ its structured entries (five controls, nine states) once on one NVIDIA GPU.
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
   A  environment: the card, its power limit, the CUDA version; no card -> fail
-  B  build kernel K1 (csrc/dense_backup.cu) with nvcc for sm_90a
+  B  build kernel K1 (csrc/dense_backup.cu) with nvcc for sm_90a; print the
+     registers, stack frame and spill stores of some compiled instantiations
+     and of every run-time-d one from ptxas -v, and fail if a run-time-d
+     kernel of a register capacity (d <= 12, d <= 16) has a stack frame or
+     spills
   C  K1 against its plain PyTorch version on the card (pendulum 31^2, LQ
      21^2, 6D quadcopter 9^6 and 11^6); an improve sweep against the evaluate
      sweep under its argmin (bit-equal) and against its 64-bit-index form
@@ -218,6 +222,10 @@ non-zero, with no result line):
          (wide_dense_backup_general, wide_dense_evaluate_general) against
          the plain version by C's bars, both semantics; ms a sweep (CUDA
          graph of 100 launches), the plain version's, and the byte bound.
+         Then the same family on twelve states at 4^12 (16,777,216 nodes,
+         3 candidates, about 7 GB of operands) on both grid forms: ms a
+         sweep against the bound (no plain version at this size; the
+         policy, the evaluate under it and finite values are checked)
          On the main path: dense_vi on the card against the CPU within
          1e-4 x max|v|, the du = 5 problem at 21^2 (both forms) and the
          nine-state one at 3^9
@@ -256,6 +264,8 @@ MPC_BUDGET_S = 25 * 0.01   # real time: a warm replan within the 25 x 0.01 s it 
 KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
 KERNELS = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general")
 WIDE = ("wide_dense_backup_general", "wide_dense_evaluate_general")   # the run-time-d form
+WIDE_CAPS = (12, 16, 32)   # its capacities; the first two keep their state in registers
+WIDE_REGISTER_CAPS = (12, 16)   # ... and must keep no local memory (no stack frame, no spills)
 ALL_KERNELS = KERNELS + WIDE
 NORTHSTAR7 = os.path.join(REPO, "NORTHSTAR7.json")  # the JAX package's 7D record (a TPU run)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (NVIDIA's data sheet)
@@ -287,9 +297,13 @@ def phase_b_build():
     db._lib()
     log(f"[B] built and loaded K1 in {time.time() - t0:.1f} s ({_ext.build_dir()})")
     # registers and spills of the 6D / 2-control instantiations, of the
-    # glider's general ones (d = 4) and of the run-time-d form, from ptxas -v
+    # glider's general ones (d = 4) and of every run-time-d one, from ptxas -v
     text = (_ext.build_dir() / "build.log").read_text()
-    for kind, args, mangled in (("dense_backup_kernel", "6,2", "ILi6ELi2ELi0EjE"),
+    wide = [(kind, f"{cap}{',nu' if nu else ''}{',int64' if idx == 'x' else ''}",
+             f"ILi{cap}ELi{nu}E{idx}E")
+            for kind in ("wide_dense_backup_general_kernel", "wide_dense_evaluate_general_kernel")
+            for cap in WIDE_CAPS for nu in (0, 1) for idx in ("j", "x")]
+    for kind, args, mangled in [("dense_backup_kernel", "6,2", "ILi6ELi2ELi0EjE"),
                                 ("dense_evaluate_kernel", "6,2", "ILi6ELi2ELi0EjE"),
                                 ("dense_backup_general_kernel", "4", "ILi4ELi0EjE"),
                                 ("dense_evaluate_general_kernel", "4", "ILi4ELi0EjE"),
@@ -297,19 +311,22 @@ def phase_b_build():
                                 ("dense_evaluate_kernel", "6,2,nu", "ILi6ELi2ELi1EjE"),
                                 ("dense_backup_kernel", "7,2,nu", "ILi7ELi2ELi1EjE"),
                                 ("dense_backup_general_kernel", "4,nu", "ILi4ELi1EjE"),
-                                ("dense_evaluate_general_kernel", "4,nu", "ILi4ELi1EjE"),
-                                ("wide_dense_backup_general_kernel", "d", "ILi0EjE"),
-                                ("wide_dense_evaluate_general_kernel", "d", "ILi0EjE"),
-                                ("wide_dense_backup_general_kernel", "d,nu", "ILi1EjE")):
+                                ("dense_evaluate_general_kernel", "4,nu", "ILi4ELi1EjE")] + wide:
         # ...ILi6ELi2ELi0EjE...: d = 6, du = 2, the uniform stencil (Li1: the
-        # non-uniform one), 32-bit (unsigned int) indices
-        m = re.search(kind + mangled + r".*?Used (\d+) registers", text, re.S)
-        spill = re.search(kind + mangled + r".*?(\d+) bytes stack frame, (\d+) bytes spill stores",
-                          text, re.S)
+        # non-uniform one), 32-bit (unsigned int; x: long long) indices; the
+        # run-time-d kernels' first argument is their capacity
+        m = re.search(r"\b_Z\w*?" + kind + mangled + r".*?Used (\d+) registers", text, re.S)
+        spill = re.search(r"\b_Z\w*?" + kind + mangled
+                          + r".*?(\d+) bytes stack frame, (\d+) bytes spill stores", text, re.S)
         if m is None or spill is None:
-            raise RuntimeError(f"build.log has no ptxas line for {kind}<{args},uint32>")
-        log(f"[B] {kind}<{args},uint32>: registers {m.group(1)}, stack frame "
-            f"{spill.group(1)} B, spill stores {spill.group(2)} B")
+            raise RuntimeError(f"build.log has no ptxas line for {kind}<{args}>")
+        regs, frame, spilled = m.group(1), int(spill.group(1)), int(spill.group(2))
+        log(f"[B] {kind}<{args}>: registers {regs}, stack frame {frame} B, spill stores "
+            f"{spilled} B")
+        if kind.startswith("wide_") and any(mangled.startswith(f"ILi{cap}E")
+                                            for cap in WIDE_REGISTER_CAPS) and (frame or spilled):
+            raise AssertionError(f"{kind}<{args}> keeps its per-dim state out of registers: "
+                                 f"a {frame} B stack frame, {spilled} B of spill stores")
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -2969,18 +2986,19 @@ def double_integrator_du5(declared=False):
         cost_r=lambda u: 0.1 * (u * u).sum(-1))
 
 
-def nine_states():
-    """C3Control(dx=9, du=1): x_j' = -x_j + u [j = 0], noise 0.3 on every
-    state, cost |x|^2 + 0.1 u^2, reflecting faces on [-1, 1]^9, u in [-1, 1]."""
+def nine_states(d=9):
+    """C3Control(dx=d, du=1): x_j' = -x_j + u [j = 0], noise 0.3 on every
+    state, cost |x|^2 + 0.1 u^2, reflecting faces on [-1, 1]^d, u in [-1, 1]
+    (d = 9 unless given: the family's nine-state member)."""
     from c3sc_tpu_torch.control import C3Control
 
-    ctrl = (C3Control(dx=9, du=1, dw=9, lb=[-1.0] * 9, ub=[1.0] * 9, beta=0.5,
-                      name="nine_states")
-            .add_drift(lambda x, u: torch.nn.functional.pad(u[..., :1], (0, 8)) - x)
+    ctrl = (C3Control(dx=d, du=1, dw=d, lb=[-1.0] * d, ub=[1.0] * d, beta=0.5,
+                      name={9: "nine_states", 12: "twelve_states"}.get(d, f"states{d}"))
+            .add_drift(lambda x, u: torch.nn.functional.pad(u[..., :1], (0, d - 1)) - x)
             .add_diff(_wide_diff)
             .add_stagecost(lambda x, u: (x * x).sum(-1) + 0.1 * (u * u).sum(-1))
             .set_value_bounds(0.0, 50.0))
-    for j in range(9):
+    for j in range(d):
         ctrl.set_external_boundary(j, "reflect")
     return ctrl.problem()
 
@@ -3080,7 +3098,52 @@ def phase_m2_nine_states(n=5):
                                      nonuniform_at=label)
         del ops, v, pol, calls
         torch.cuda.empty_cache()
+    phase_m2_twelve_states(record)
     return errs, record
+
+
+def phase_m2_twelve_states(record, n=4):
+    """M.2 at a second width: the same family on twelve states at n^12
+    (16,777,216 nodes at n = 4, 3 candidates: fc and s2c 2.4 GB each), on
+    the uniform grid and on a tanh grid of that shape. No plain version at
+    this size (its [C, N, d, d] diffusion alone would take 29 GB): the
+    improve's policy must equal gather_policy of its argmin, the evaluate
+    under it must repeat the improve's value bit for bit, the values must be
+    finite. ms a sweep (a CUDA graph of 100 launches) against the byte
+    bound, into ``record`` under the twelve_* keys."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    prob = nine_states(12)
+    for form, grid in (("uniform", prob.default_grid(n)),
+                       ("tanh", tanh_grid(prob, (n,) * 12))):
+        ops = db.make_dense_operands(prob, grid, prob.control_candidates(3), DEVICE)
+        label = f"{prob.name} {n}^12 {form}, {ops.uc.shape[0]} candidates"
+        v = torch.as_tensor(np.random.default_rng(0).uniform(0, 5, grid.shape),
+                            dtype=torch.float32, device=DEVICE)
+        before = db.launch_counts()
+        kv, pol = db.dense_backup(ops, v, with_policy=True)
+        ke = db.dense_evaluate(ops, v, pol)
+        made = {k: c - before[k] for k, c in db.launch_counts().items()}
+        if made[WIDE[0]] != 1 or made[WIDE[1]] != 1:
+            raise AssertionError(f"{label}: the sweeps launched {made}, not the wide entries")
+        if not (torch.isfinite(kv).all() and _policy_equal(pol, db.gather_policy(ops, pol.best))
+                and torch.equal(ke, kv)):
+            raise AssertionError(f"{label}: the wide kernels' improve, policy and evaluate "
+                                 f"disagree")
+        del kv, ke
+        ms = {WIDE[0]: graph_ms(lambda: db.dense_backup(ops, v, with_policy=True)),
+              WIDE[1]: graph_ms(lambda: db.dense_evaluate(ops, v, pol))}
+        bounds = _wide_bounds(ops, WIDE, 0 if grid.uniform else 4 * 5 * sum(grid.shape))
+        for entry, t in ms.items():
+            b = bounds[entry]["bound_ms"]
+            log(f"[M.2] {label}: {entry} {t:.4f} ms a sweep (CUDA graph of 100) against its "
+                f"bound {b:.4f} ms ({bounds[entry]['bound_by']}): {100 * b / t:.1f} % of the "
+                f"bound")
+            pre = "twelve_" if form == "uniform" else "twelve_nonuniform_"
+            record[entry].update({pre + "ms": t, pre + "bound_ms": b})
+            record[entry]["twelve_at"] = f"{prob.name} {n}^12, {ops.uc.shape[0]} candidates"
+        del ops, v, pol
+        torch.cuda.empty_cache()
 
 
 def phase_m_solves():

@@ -133,3 +133,27 @@ def test_33_dims_raise():
     grid = Grid.create([-1.0] * 33, [1.0] * 33, (2,) * 33, (False,) * 33)
     with pytest.raises(ValueError, match="at most 32 dims"):
         dataclasses.replace(ops, grid=grid).kernel_args
+
+
+def test_runtime_d_switch_is_ignored_on_cpu():
+    """The tests' ``_runtime_d`` switch of the general wrappers (and of the
+    wide ones) is ignored on CPU tensors: the plain version runs, on the
+    glider's four dims and on nine states; a grid of 33 dims still has no
+    kernel (``kernel_args`` raises)."""
+    from c3sc_tpu_torch import models as tm
+
+    for tp, n in ((tm.make_problem("glider"), (5, 4, 4, 4)), (nine_states(), 3)):
+        grid = tp.default_grid(n)
+        ops = db.make_dense_operands(tp, grid, tp.control_candidates(3), "cpu")
+        v = torch.as_tensor(np.random.default_rng(1).uniform(0, 5, grid.shape), dtype=torch.float32)
+        want, wpol = db.dense_backup_reference(ops, v, tp.value_bounds, True, with_policy=True)
+        for entry in (db.dense_backup_general, db.wide_dense_backup_general):
+            got, pol = entry(ops, v, tp.value_bounds, True, with_policy=True, _runtime_d=True)
+            assert torch.equal(got, want) and torch.equal(pol.best, wpol.best)
+            assert torch.equal(pol.fpol_k, wpol.fpol_k)
+        want_e = db.dense_evaluate_reference(ops, v, wpol)
+        for entry in (db.dense_evaluate_general, db.wide_dense_evaluate_general):
+            assert torch.equal(entry(ops, v, wpol, _runtime_d=True), want_e)
+    grid = Grid.create([-1.0] * 33, [1.0] * 33, (2,) * 33, (False,) * 33)
+    with pytest.raises(ValueError, match="at most 32 dims"):
+        dataclasses.replace(ops, grid=grid).kernel_args

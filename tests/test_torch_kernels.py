@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_testing import (QUAD, TIE, V5, double_integrator_du5, nine_states, random_v,
-                                 tanh_node_sets)
+from torch_port_testing import (QUAD, TIE, V5, double_integrator_du5, many_states, nine_states,
+                                 random_v, tanh_node_sets)
 from c3sc_tpu_torch import models as tm
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
 from c3sc_tpu_torch.convert import value_from_npz
@@ -577,10 +577,60 @@ def test_a_graph_replay_runs_the_kernels_it_counts(cuda):
                             "wide_dense_backup_general": 0, "wide_dense_evaluate_general": 0}
 
 
+def _tanh(grid):
+    return Grid.create(grid.lb, grid.ub, grid.shape, grid.periodic,
+                       nodes=tanh_node_sets(grid.lb, grid.ub, grid.shape, grid.periodic))
+
+
+@pytest.mark.parametrize("with_policy", [False, True], ids=["bare", "policy"])
+@pytest.mark.parametrize("nonuniform", [False, True], ids=["uniform", "tanh"])
+@pytest.mark.parametrize("case", ["glider-4", "states-8"])
+def test_runtime_d_matches_compiled_on_card(cuda, case, nonuniform, with_policy):
+    """The run-time-d kernels (the wrappers' _runtime_d switch) at d <= 8
+    against the compiled general entries on the same grid: the glider's d =
+    4 (9 candidates; shared variances and cost) and an eight-state C3Control
+    problem (3 candidates; per-candidate variances and cost),
+    under both semantics, with and without the improve's policy epilogue.
+    They do the same arithmetic in the same order, so value, argmin, policy
+    and the evaluate sweep under that policy must agree bit for bit. The
+    switched launches count on the wide entries."""
+    tp, shape, per_dim = {"glider-4": (tm.make_problem("glider"), (11, 9, 9, 9), 9),
+                          "states-8": (many_states(8), 5, 3)}[case]
+    grid = tp.default_grid(shape)
+    if nonuniform:
+        grid = _tanh(grid)
+    ops = db.make_dense_operands(tp, grid, tp.control_candidates(per_dim), cuda)
+    assert ops.general and grid.ndim <= db.MAX_D
+    v = _random_v(grid.shape, cuda)
+    counts = lambda: (db.dense_backup_general.launches, db.dense_evaluate_general.launches,  # noqa: E731
+                      db.wide_dense_backup_general.launches, db.wide_dense_evaluate_general.launches)
+    before = counts()
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        want, wpol = db.dense_backup_general(ops, v, clip, pin, with_policy=with_policy)
+        got, gpol = db.dense_backup_general(ops, v, clip, pin, with_policy=with_policy,
+                                            _runtime_d=True)
+        assert torch.equal(got, want)
+        if with_policy:
+            for a, b in ((gpol.best, wpol.best), (gpol.fpol_k, wpol.fpol_k),
+                         (gpol.s2pol_k, wpol.s2pol_k), (gpol.gpol, wpol.gpol)):
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+            policy = wpol
+        else:
+            assert torch.equal(gpol, wpol)
+            policy = db.gather_policy(ops, wpol)
+        assert torch.equal(db.dense_evaluate_general(ops, v, policy, _runtime_d=True),
+                           db.dense_evaluate_general(ops, v, policy))
+    assert [a - b for a, b in zip(counts(), before)] == [2, 2, 2, 2]
+
+
 def _wide_cases():
     return {
         "nine-states": (nine_states, 4, 3),
         "synthetic-10x5": (lambda: _synthetic_problem(10, 5), (3, 4, 2, 2, 4, 2, 2, 4, 2, 2), 2),
+        # the run-time-d form's capacities: d = 9 and 10 take the first (up to
+        # 12 dims), 14 the second (16), 18 the third (32, its state in shared memory)
+        "fourteen-states": (lambda: many_states(14), 2, 3),
+        "synthetic-18x2": (lambda: _synthetic_problem(18, 2), (3, 2, 3) + (2,) * 15, 2),
     }
 
 
@@ -589,7 +639,8 @@ def _wide_cases():
 def test_wide_entries_match_plain_on_card(cuda, case, nonuniform):
     """K1's run-time-d general kernels (d = 9 from C3Control; d = 10 with
     five controls and all five declarations, periodic, absorbing and
-    reflecting faces) against the plain version under both semantics:
+    reflecting faces; d = 14 and 18, the larger capacities) against the
+    plain version under both semantics:
     values within 2e-4, argmins off near-ties (TIE), the improve's policy
     bit for bit gather_policy of its argmin, 64-bit offsets bit-equal to
     32-bit, evaluate under the improve's own policy bit-equal to it. Every
@@ -598,8 +649,7 @@ def test_wide_entries_match_plain_on_card(cuda, case, nonuniform):
     tp = make()
     grid = tp.default_grid(n)
     if nonuniform:
-        grid = Grid.create(grid.lb, grid.ub, grid.shape, grid.periodic,
-                           nodes=tanh_node_sets(grid.lb, grid.ub, grid.shape, grid.periodic))
+        grid = _tanh(grid)
     ops = db.make_dense_operands(tp, grid, tp.control_candidates(n_cand), cuda)
     assert ops.general and grid.ndim > db.MAX_D
     v = _random_v(grid.shape, cuda)

@@ -139,15 +139,21 @@ def nine_states():
     du=1, ...)``: x_j' = -x_j + u [j = 0], noise 0.3 on every state, cost
     |x|^2 + 0.1 u^2, reflecting faces on [-1, 1]^9, u in [-1, 1]. K1 runs it
     in the general entries' run-time-d form."""
+    return many_states(9, "nine_states")
+
+
+def many_states(d, name=None):
+    """``nine_states`` on ``d`` states (named ``states<d>`` unless ``name``
+    is given)."""
     from c3sc_tpu_torch.control import C3Control
 
-    ctrl = (C3Control(dx=9, du=1, dw=9, lb=[-1.0] * 9, ub=[1.0] * 9, beta=0.5,
-                      name="nine_states")
-            .add_drift(lambda x, u: torch.nn.functional.pad(u[..., :1], (0, 8)) - x)
+    ctrl = (C3Control(dx=d, du=1, dw=d, lb=[-1.0] * d, ub=[1.0] * d, beta=0.5,
+                      name=name or f"states{d}")
+            .add_drift(lambda x, u: torch.nn.functional.pad(u[..., :1], (0, d - 1)) - x)
             .add_diff(_wide_diff)
             .add_stagecost(lambda x, u: (x * x).sum(-1) + 0.1 * (u * u).sum(-1))
             .set_value_bounds(0.0, 50.0))
-    for j in range(9):
+    for j in range(d):
         ctrl.set_external_boundary(j, "reflect")
     return ctrl.problem()
 
