@@ -15,7 +15,7 @@ no counterpart):
   models/             ControlProblem + the six systems (LQ, pendulum, Dubins, glider,
                       the 6D and 7D quadcopters)
   ops/mca.py          Kushner–Dupuis stencil
-  ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cu,
+  ops/dense_backup.py whole-grid Bellman sweep (CUDA kernel csrc/dense_backup.cuh,
                       uniform and non-uniform grids)
   ops/interp.py       multilinear interpolation
   ops/tt.py           padded tensor trains: evaluation, add, mult, dot, integrate,

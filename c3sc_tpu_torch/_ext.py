@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+a source, all started together, and links the objects into one shared
+library with a plain C interface, which is loaded with ``ctypes``.
 The library lands in ``_build/<hash>/``, keyed by a hash of the sources and
 flags, and is built at first use: on a machine with the CUDA toolkit,
 calling ``load()`` (or any kernel wrapper on a CUDA tensor) is enough.
@@ -22,7 +23,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libc3sc_torch_kernels.so"
 
 
@@ -50,6 +51,20 @@ def build_dir() -> pathlib.Path:
     return BUILD / digest.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands at once; (their logs, in order, and the first
+    failure's message or None)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed with code {proc.returncode}:\n{out[-6000:]}"
+    return logs, failed
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build the kernels if needed and load them (once per process).
@@ -61,13 +76,19 @@ def load() -> ctypes.CDLL:
     lib_path = out / LIB_NAME
     if not lib_path.exists():
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{proc.stderr[-6000:]}")
+        tag = f"{os.getpid()}.tmp"
+        units = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [out / f"{s.stem}.{tag}.o" for s in units]
+        logs, failed = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                             for s, o in zip(units, objs)])
+        tmp = out / f"{LIB_NAME}.{tag}"
+        if failed is None:
+            link, failed = _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+            logs += link
+        (out / "build.log").write_text("\n".join(logs))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed is not None:
+            raise RuntimeError(failed)
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return ctypes.CDLL(str(lib_path))

@@ -1,0 +1,12 @@
+// The structured entries' kernels at d = 1 and 2.
+// One of K1's translation units, compiled in parallel with the others
+// (dense_backup.cuh, "The build").
+
+#include "dense_backup.cuh"
+
+namespace c3sc {
+
+template cudaError_t run_d<1>(const Call&, long long);
+template cudaError_t run_d<2>(const Call&, long long);
+
+}  // namespace c3sc

@@ -3,7 +3,7 @@
 Counterpart of ``c3sc_tpu/ops/pallas_dense.py`` (the Pallas TPU kernel
 ``make_pallas_dense_backup``) and of the ``improve``/``evaluate`` sweeps of
 ``c3sc_tpu/solvers/dense.py::make_dense_step``. On a CUDA tensor the
-wrappers launch the hand-written kernel in ``csrc/dense_backup.cu``; on a
+wrappers launch the hand-written kernel in ``csrc/dense_backup.cuh``; on a
 CPU tensor they run the plain PyTorch version, which computes the same math
 through ``mca.transition_all_controls`` and ``mca.stage_cost_all``. There is
 no fallback from one to the other: on CUDA the kernel runs or the wrapper
@@ -37,8 +37,12 @@ alone take 32 GiB, so no such grid fits one card.
 Non-uniform grids. Every entry takes them: on such a grid the operands carry
 ``nu_k [sum_k n_k, 8]``, each dim's table of the reciprocal spacings the
 unequal-spacing stencil of ``mca._stencil_nonuniform`` uses at each of its
-coordinates (``spacing_tables``), and the kernels scale each candidate's
-drift by ``1/h+`` or ``1/h-`` once its sign is known.
+coordinates (``spacing_tables``), and the sign of each candidate's drift
+selects ``1/h+`` or ``1/h-`` (``candidate_rhs_factored``).
+
+Lanes. On a grid too small to fill the card by itself, the compiled general
+improve gives each node several lanes, each walking a strided share of the
+candidates; ``general_lanes`` is the host's rule.
 
 The policy. ``dense_vi`` runs ``eval_sweeps`` fixed-policy sweeps after
 every improve. ``dense_backup(..., with_policy=True)`` returns the improve's
@@ -76,10 +80,15 @@ from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
 
-MAX_D = 8         # kMaxD in csrc/dense_backup.cu: the structured entries, and the
+MAX_D = 8         # kMaxD in csrc/dense_backup.cuh: the structured entries, and the
                   # general entries' compiled-d form
 MAX_DU = 4        # kMaxDU: the structured entries' controls
 MAX_D_WIDE = 32   # kMaxDWide: the general entries' run-time-d form, MAX_D < d <= 32
+MAX_LANES = 32    # kMaxLanes: the compiled general improve's lanes a node sit in one warp
+SECTOR_LANES = 4  # general_lanes' cap: at 32 / 4 = 8 nodes a warp's load of one plane
+                  # still covers whole 32-byte sectors
+LANE_WAVES = 2    # waves of resident threads the lanes of general_lanes aim for
+SM_THREADS = 2048  # resident threads an SM of Hopper holds
 _EPS = 1e-10  # the stencil's guard against Q = 0, as in ops/mca.py
 
 
@@ -199,7 +208,30 @@ def make_dense_operands(problem: ControlProblem, grid: Grid, controls,
                          **declared)
 
 
-SPACING_STRIDE = 8  # kSpacingStride in csrc/dense_backup.cu
+SPACING_STRIDE = 8  # kSpacingStride in csrc/dense_backup.cuh
+
+
+def general_lanes(n_nodes: int, n_cand: int, n_sms: int) -> int:
+    """Lanes a node of the compiled general improve on a grid of ``n_nodes``
+    with ``n_cand`` candidates, on a card of ``n_sms`` SMs: the fewest
+    powers of two that bring ``n_nodes`` x lanes to ``LANE_WAVES`` waves of
+    resident threads (``SM_THREADS`` an SM), never more than the candidates
+    nor ``SECTOR_LANES``: the kernel takes up to ``MAX_LANES``, but at 8 and
+    more a warp's loads split 32-byte sectors between warps, and on an H100
+    the du = 5 improve on 201^2 ran 10-80 % slower at 8 to 32 lanes than at
+    4 (experiments/torch_general_variants.py, PERF.md). 1 on a grid that
+    fills the card by itself."""
+    want = LANE_WAVES * SM_THREADS * n_sms
+    lanes = 1
+    while 2 * lanes <= min(SECTOR_LANES, n_cand) and n_nodes * lanes < want:
+        lanes *= 2
+    return lanes
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (cudaDevAttrMultiProcessorCount), read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def spacing_tables(grid: Grid, device) -> Optional[torch.Tensor]:
@@ -350,10 +382,12 @@ def candidate_rhs_factored(ops: DenseOperands, v, clip=None, pin_input: bool = F
     ``a``, ``Q0``, ``A0`` from ``s2c`` and the cost from ``gc`` where those
     are per candidate. On a non-uniform grid, from the spacing tables:
     ``Q0 = sum_j s2_j / (h+ h-) + 1e-10``, ``A0 = sum_j s2_j (v+_j / (h+ (h+ +
-    h-)) + v-_j / (h- (h+ + h-)))`` and ``fh = f / h+`` where ``f > 0``,
-    ``f / h-`` elsewhere, with f unscaled. It equals ``candidate_rhs`` to
-    float rounding; the tests hold the kernels' algebra against the JAX
-    package through it.
+    h-)) + v-_j / (h- (h+ + h-)))``, with f unscaled and ``h = h+`` where
+    ``f > 0``, ``h-`` elsewhere: the general entries take ``fh = f / h``;
+    the structured ones ``Q = Q0 + sum_j |f_j| / h_j`` and ``S = sum_j |f_j|
+    (v_j / h_j)``, with ``v_j / h_j`` formed once a node. It equals
+    ``candidate_rhs`` to float rounding; the tests hold the kernels' algebra
+    against the JAX package through it.
     """
     grid = ops.grid
     vp, vm = neighbor_values(_input_values(ops, v, clip, pin_input), grid)   # [N, d]
@@ -374,13 +408,22 @@ def candidate_rhs_factored(ops: DenseOperands, v, clip=None, pin_input: bool = F
         A0 = torch.sum(s2 * (cp * vp + cm * vm), dim=-1)
         if ops.general:
             f = ops.fc_k.transpose(1, 2)
+            fh = f * torch.where(f > 0, ihp, ihm)
         else:
             f = ops.f0[None] + torch.einsum("ndm,cm->cnd", ops.G, ops.uc)
-        fh = f * torch.where(f > 0, ihp, ihm)
-    g = ops.gc if ops.gc is not None else ops.r[:, None] + ops.q[None]
+            up, af = f > 0, torch.abs(f)
+            Q = Q0 + torch.sum(af * torch.where(up, ihp, ihm), dim=-1)
+            S = torch.sum(af * torch.where(up, ihp * vp, ihm * vm), dim=-1)
+            return _rhs(ops, Q, A0, S)
     af = torch.abs(fh)
-    dt = 1.0 / (Q0 + torch.sum(af, dim=-1))
     S = torch.sum(af * torch.where(fh > 0, vp[None], vm[None]), dim=-1)
+    return _rhs(ops, Q0 + torch.sum(af, dim=-1), A0, S)
+
+
+def _rhs(ops: DenseOperands, Q, A0, S):
+    """The factored rhs [C, N] from Q, A0 and S."""
+    g = ops.gc if ops.gc is not None else ops.r[:, None] + ops.q[None]
+    dt = 1.0 / Q
     return dt * (g + torch.exp(-ops.problem.beta * dt) * (A0 + S))
 
 
@@ -430,7 +473,7 @@ def _lib() -> ctypes.CDLL:
     lib.c3sc_dense_evaluate.argtypes = [ptr] * 11 + [i32] * 3 + desc + [f32, i32, ptr]
     lib.c3sc_dense_evaluate.restype = i32
     lib.c3sc_dense_backup_general.argtypes = ([ptr] * 14 + [i32] * 2 + desc
-                                              + [f32, i32, f32, f32, i32, i32, i32, ptr])
+                                              + [f32, i32, f32, f32, i32, i32, i32, i32, ptr])
     lib.c3sc_dense_backup_general.restype = i32
     lib.c3sc_dense_evaluate_general.argtypes = ([ptr] * 14 + [i32] * 2 + desc
                                                 + [f32, i32, i32, ptr])
@@ -596,7 +639,7 @@ def _ptr(t):
 
 def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = False, *,
                          with_policy: bool = False, _wide_index: bool = False,
-                         _runtime_d: bool = False):
+                         _runtime_d: bool = False, _lanes: Optional[int] = None):
     """One improve sweep on general operands (a problem without all five
     declarations, or beyond the structured kernels' limits): (vnew
     [*grid.shape] f32, best [N] int32), with ``dense_backup``'s ``clip`` and
@@ -613,6 +656,9 @@ def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = Fal
     offsets are taken when C d N >= 2^31; ``_wide_index`` forces them.
     ``_runtime_d`` is the tests' switch that sends a grid of at most
     ``MAX_D`` dims to ``wide_dense_backup_general`` too (ignored on the CPU).
+    The kernel takes ``general_lanes`` lanes a node; ``_lanes`` (a power of
+    two up to ``MAX_LANES``) is the tests' switch that forces another count
+    (ignored on the CPU and by the run-time-d form).
     """
     if v.device.type == "cpu":
         return dense_backup_reference(ops, v, clip, pin_input, with_policy)
@@ -621,7 +667,12 @@ def dense_backup_general(ops: DenseOperands, v, clip=None, pin_input: bool = Fal
     if ops.grid.ndim > MAX_D or _runtime_d:
         return wide_dense_backup_general(ops, v, clip, pin_input, with_policy=with_policy,
                                          _wide_index=_wide_index, _runtime_d=_runtime_d)
-    out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index)
+    if _lanes is None:
+        _lanes = general_lanes(ops.x.shape[0], ops.uc.shape[0], _sm_count(v.device.index))
+    elif _lanes not in [2 ** k for k in range(MAX_LANES.bit_length())]:
+        raise ValueError(f"_lanes must be a power of two up to {MAX_LANES}, got {_lanes}")
+    out = _launch_backup_general(ops, v, clip, pin_input, with_policy, _wide_index,
+                                 lanes=_lanes)
     dense_backup_general.launches += 1
     return out
 
@@ -651,9 +702,10 @@ wide_dense_backup_general.launches = 0
 
 
 def _launch_backup_general(ops: DenseOperands, v, clip, pin_input, with_policy, wide_index,
-                           runtime_d=False):
+                           runtime_d=False, lanes=1):
     """Launch the general improve kernel (the library picks the form by d;
-    ``runtime_d`` takes the run-time-d form at any d)."""
+    ``runtime_d`` takes the run-time-d form at any d; ``lanes`` a node in
+    the compiled form)."""
     ptrs, scalars = _kernel_inputs(ops, v)
     N, d = ops.x.shape
     vnew = torch.empty(N, dtype=torch.float32, device=v.device)
@@ -666,7 +718,8 @@ def _launch_backup_general(ops: DenseOperands, v, clip, pin_input, with_policy, 
     lo, hi = (float(clip[0]), float(clip[1])) if clip is not None else (0.0, 0.0)
     _launch("c3sc_dense_backup_general", v, v.data_ptr(), *ptrs, vnew.data_ptr(),
             best.data_ptr(), _ptr(pol.fpol_k), _ptr(pol.s2pol_k), _ptr(pol.gpol), *scalars,
-            int(clip is not None), lo, hi, int(pin_input), int(wide_index), int(runtime_d))
+            int(clip is not None), lo, hi, int(pin_input), int(wide_index), int(runtime_d),
+            int(lanes))
     return vnew.view(ops.grid.shape), (pol if with_policy else best)
 
 

@@ -9,7 +9,7 @@ discrete solution given that boundary data; boundary error enters only
 through discounted first passage to the faces.
 
 The sweeps are kernel K1's improve sweep (``ops/dense_backup.dense_backup``,
-``csrc/dense_backup.cu`` on a CUDA device, its plain version on the CPU)
+``csrc/dense_backup.cuh`` on a CUDA device, its plain version on the CPU)
 with the patch's own terminal mask: the sub-box faces pinned to the TT data,
 and interior obstacle or goal nodes pinned as the parent operator pins them.
 A sub-box that is not uniform (a slice of a periodic dimension's nodes is

@@ -25,7 +25,7 @@ its structured entries (five controls, nine states) once on one NVIDIA GPU.
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero, with no result line):
   A  environment: the card, its power limit, the CUDA version; no card -> fail
-  B  build kernel K1 (csrc/dense_backup.cu) with nvcc for sm_90a; print the
+  B  build kernel K1 (csrc/dense_backup*.cu, one nvcc each, all at once) for sm_90a; print the
      registers, stack frame and spill stores of some compiled instantiations
      and of every run-time-d one from ptxas -v, and fail if a run-time-d
      kernel of a register capacity (d <= 12, d <= 16) has a stack frame or
@@ -105,8 +105,11 @@ non-zero, with no result line):
          terminal LQR latch (make_terminal_lqr(radius=0.4), as
          experiments/northstar_deploy_dualmode.py builds it), the same x0
          and noise: mean cost, survival, signed_rel against the pure-MPC
-         dense row, median replan within 5 % of the pure row's (the latch
-         lies outside the replan's graph)
+         dense row; then the replan graphs of the pure and the dual-mode
+         dense rows, each the one its own row captured, replayed in turns
+         (pure, dual, dual, pure, 10 rounds): the dual-mode median replan
+         (each mode's over its pooled replays) within 5 % of the pure one
+         (the latch lies outside the replan's graph)
      then K1 held against its plain version on the patch's 7^6 sub-box (one
      sweep, and the whole patch solve)
   I  the remaining models, each held to the JAX package's own bars:
@@ -116,7 +119,8 @@ non-zero, with no result line):
          glider 41^4 (9 candidates; its drift is undeclared) and on the
          pendulum at 1001^2 stripped of every declaration (per-candidate
          variances and cost); max difference, ms a sweep, each entry's share of
-         its bound; the improve's policy (with_policy=True: for general
+         its bound, the general improve's lanes a node and the run-time-d
+         kernel's ms on the same grid beside it; the improve's policy (with_policy=True: for general
          operands the winner's operands from its epilogue) bit-equal to
          gather_policy of its argmin, the evaluate under it bit-equal to the
          improve
@@ -176,7 +180,9 @@ non-zero, with no result line):
          quadcopter7 9^7 (25 candidates, structured entries), the glider
          (15, 11, 11, 11) (9 candidates, general entries); ms a sweep beside
          the uniform grid of the same shape, timed in the same run, and the
-         bound with the spacing tables counted. On the main path: dense_vi on
+         bound with the spacing tables counted; the general improve on both
+         grids with its lanes a node, beside the run-time-d kernel's ms on
+         the same grid. On the main path: dense_vi on
          the LQ 21^2 tanh grid and solve_local_patch on the pendulum's
          non-uniform patch, card against CPU within 1e-4 x max|v|
      K.2 the CLI (c3sc_tpu_torch.cli.main in this process): the documented
@@ -214,7 +220,8 @@ non-zero, with no result line):
          candidates a control, 243) on 201^2 (40,401 nodes, fc 79 MB), and
          the same problem with all five declarations, which du = 5 also
          sends to the general entries: both against the plain version by
-         C's bars, both semantics; ms a sweep against the bound
+         C's bars, both semantics; ms a sweep against the bound, the improve
+         with its lanes a node beside the run-time-d kernel's ms
      M.2 (kernels outside the counted run) C3Control(dx=9, du=1): x_j' =
          -x_j + u [j = 0], noise 0.3, cost |x|^2 + 0.1 u^2, reflecting faces
          on [-1, 1]^9, 3 candidates, on 5^9 (1,953,125 nodes) and on a tanh
@@ -225,7 +232,9 @@ non-zero, with no result line):
          Then the same family on twelve states at 4^12 (16,777,216 nodes,
          3 candidates, about 7 GB of operands) on both grid forms: ms a
          sweep against the bound (no plain version at this size; the
-         policy, the evaluate under it and finite values are checked)
+         policy, the evaluate under it and finite values are checked), and
+         on eight states at 6^8 (both grid forms) the compiled general
+         improve against the run-time-d one: bit-equal, ms a sweep each.
          On the main path: dense_vi on the card against the CPU within
          1e-4 x max|v|, the du = 5 problem at 21^2 (both forms) and the
          nine-state one at 3^9
@@ -240,6 +249,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -261,7 +271,7 @@ FUSED_Q95_BAR = 0.25  # interior q95 of |v_tt - v_dense| / (max - min of v_dense
 SEED0_Q95 = 0.028826  # the JAX package's interior q95 of the committed seed-0 composite
 FLAGSHIP_Q95_BAR = 0.05   # the deployed composite at the recipe's full depth (JAX seeds 0.012-0.032)
 MPC_BUDGET_S = 25 * 0.01   # real time: a warm replan within the 25 x 0.01 s it plans for
-KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cu"
+KERNEL_SOURCE = "c3sc_tpu_torch/csrc/dense_backup.cuh"
 KERNELS = ("dense_backup", "dense_evaluate", "dense_backup_general", "dense_evaluate_general")
 WIDE = ("wide_dense_backup_general", "wide_dense_evaluate_general")   # the run-time-d form
 WIDE_CAPS = (12, 16, 32)   # its capacities; the first two keep their state in registers
@@ -297,7 +307,9 @@ def phase_b_build():
     db._lib()
     log(f"[B] built and loaded K1 in {time.time() - t0:.1f} s ({_ext.build_dir()})")
     # registers and spills of the 6D / 2-control instantiations, of the
-    # glider's general ones (d = 4) and of every run-time-d one, from ptxas -v
+    # compiled general improve (in lanes) at d = 2 (du = 5), 4 (the glider)
+    # and 8, of the structured non-uniform form at (6, 2), (6, 4), (7, 2) and
+    # of every run-time-d one, from ptxas -v
     text = (_ext.build_dir() / "build.log").read_text()
     wide = [(kind, f"{cap}{',nu' if nu else ''}{',int64' if idx == 'x' else ''}",
              f"ILi{cap}ELi{nu}E{idx}E")
@@ -305,16 +317,26 @@ def phase_b_build():
             for cap in WIDE_CAPS for nu in (0, 1) for idx in ("j", "x")]
     for kind, args, mangled in [("dense_backup_kernel", "6,2", "ILi6ELi2ELi0EjE"),
                                 ("dense_evaluate_kernel", "6,2", "ILi6ELi2ELi0EjE"),
-                                ("dense_backup_general_kernel", "4", "ILi4ELi0EjE"),
+                                ("dense_backup_general_kernel", "2,L4", "ILi2ELi0EjLi4EE"),
+                                ("dense_backup_general_kernel", "4,L1", "ILi4ELi0EjLi1EE"),
+                                ("dense_backup_general_kernel", "4,L4", "ILi4ELi0EjLi4EE"),
+                                ("dense_backup_general_kernel", "8,L1", "ILi8ELi0EjLi1EE"),
                                 ("dense_evaluate_general_kernel", "4", "ILi4ELi0EjE"),
                                 ("dense_backup_kernel", "6,2,nu", "ILi6ELi2ELi1EjE"),
                                 ("dense_evaluate_kernel", "6,2,nu", "ILi6ELi2ELi1EjE"),
+                                ("dense_backup_kernel", "6,4,nu", "ILi6ELi4ELi1EjE"),
+                                ("dense_evaluate_kernel", "6,4,nu", "ILi6ELi4ELi1EjE"),
                                 ("dense_backup_kernel", "7,2,nu", "ILi7ELi2ELi1EjE"),
-                                ("dense_backup_general_kernel", "4,nu", "ILi4ELi1EjE"),
+                                ("dense_evaluate_kernel", "7,2,nu", "ILi7ELi2ELi1EjE"),
+                                ("dense_backup_general_kernel", "2,nu", "ILi2ELi1EjLi0EE"),
+                                ("dense_backup_general_kernel", "4,nu", "ILi4ELi1EjLi0EE"),
+                                ("dense_backup_general_kernel", "8,nu", "ILi8ELi1EjLi0EE"),
                                 ("dense_evaluate_general_kernel", "4,nu", "ILi4ELi1EjE")] + wide:
         # ...ILi6ELi2ELi0EjE...: d = 6, du = 2, the uniform stencil (Li1: the
         # non-uniform one), 32-bit (unsigned int; x: long long) indices; the
-        # run-time-d kernels' first argument is their capacity
+        # compiled general improve's last argument is its lanes a node (L4:
+        # 4; Li0E: at run time); the run-time-d kernels' first argument is
+        # their capacity
         m = re.search(r"\b_Z\w*?" + kind + mangled + r".*?Used (\d+) registers", text, re.S)
         spill = re.search(r"\b_Z\w*?" + kind + mangled
                           + r".*?(\d+) bytes stack frame, (\d+) bytes spill stores", text, re.S)
@@ -401,7 +423,7 @@ def sweep_bounds(ops):
     """The least time the card could take for one improve and one evaluate
     sweep on these operands: the larger of bytes / memory rate (each input
     read once, each output written once) and float32 operations / peak rate,
-    counted for the factored form of csrc/dense_backup.cu on this data."""
+    counted for the factored form of csrc/dense_backup.cuh on this data."""
     N, d = ops.x.shape
     du, C = ops.problem.du, ops.uc.shape[0]
     node_in = 4 * (d + d * du + d + 1) + 1 + 4 + 4     # f0, G, s2, q, t_mask, t_val, v
@@ -448,6 +470,18 @@ def _bounds(work):
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "flops": flops}
     return out
+
+
+def general_improve_lanes(ops, v):
+    """The compiled general improve's lanes a node on these operands (the
+    host's rule) and the run-time-d kernel's ms a sweep on the same grid
+    (with the policy's epilogue, a CUDA graph of 100 launches): the figure
+    each general improve time is printed beside."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    lanes = db.general_lanes(ops.x.shape[0], ops.uc.shape[0], db._sm_count(DEVICE.index or 0))
+    rd = graph_ms(lambda: db.dense_backup_general(ops, v, with_policy=True, _runtime_d=True))
+    return lanes, rd
 
 
 def _policy_equal(a, b):
@@ -1536,13 +1570,51 @@ def phase_h2_recipe(fused, cycles, rmax=64, steps=10, seed=0, label="graphed var
     return vfn, q_comp
 
 
+@contextlib.contextmanager
+def kept_replan_graphs():
+    """The replan graphs (``mpc_shoot._GraphedCall``) that the receding-horizon
+    rollouts inside the block capture, kept past their rollouts, in order."""
+    from c3sc_tpu_torch.sim import mpc_shoot
+
+    kept, init = [], mpc_shoot._GraphedCall.__init__
+
+    def keep(self, fn):
+        init(self, fn)
+        kept.append(self)
+
+    mpc_shoot._GraphedCall.__init__ = keep
+    try:
+        yield kept
+    finally:
+        mpc_shoot._GraphedCall.__init__ = init
+
+
+def replans_in_turns(graphs, rounds=10):
+    """Each mode's replan graph replayed on its row's last inputs, as a
+    rollout's replan runs it (between two device synchronisations), in turns
+    (pure, dual, dual, pure) ``rounds`` times: the seconds of each replay,
+    by mode. The card's speed on these graphs shifts by up to a quarter over
+    tens of seconds, whatever the graph (experiments/torch_replan_timing.py),
+    so the two modes are timed in the same seconds."""
+    args = {mode: tuple(a.clone() for a in g.inputs) for mode, g in graphs.items()}
+    times = {mode: [] for mode in graphs}
+    for _ in range(rounds):
+        for mode in ("pure", "dual", "dual", "pure"):
+            times[mode].append(_synced_s(lambda: graphs[mode](*args[mode]))[1])
+    return times
+
+
 def phase_h3_deploy(vfn_prod, n_greedy=256, n_mpc=256, n_steps=400, dt=0.01):
     """H.3: greedy and receding-horizon iLQR closed loops on the deployed
     composite and on the dense value, under common random numbers (the same
     x0 and noise for every recipe seed, as quad_dense_oracle.py draws them:
     its deployment keys do not depend on the seed); then the dual-mode row
-    on the dense value. Returns the greedy cost_rel, the iLQR signed_rel and
-    survivals, and the dual-mode row's."""
+    on the dense value. The replan bar is read in turns: the replan graphs
+    that the pure and the dual-mode rows on the dense value captured, each
+    replayed on its row's last inputs in the order pure, dual, dual, pure
+    (replans_in_turns), each mode's median over its pooled replays.
+    Returns the greedy cost_rel, the iLQR signed_rel and survivals, and the
+    dual-mode row's."""
     from c3sc_tpu_torch.ops.interp import multilinear_interp
     from c3sc_tpu_torch.sim import make_implicit_policy, make_terminal_lqr, rollout
     from c3sc_tpu_torch.sim.mpc_shoot import receding_horizon_rollout
@@ -1570,16 +1642,20 @@ def phase_h3_deploy(vfn_prod, n_greedy=256, n_mpc=256, n_steps=400, dt=0.01):
     log(f"[H.3] greedy closed loop {n_greedy} x {n_steps} steps dt {dt}: mean cost composite "
         f"{c_p:.4f} dense {c_o:.4f} (rel {(c_p - c_o) / abs(c_o):+.4f}), survival composite "
         f"{100 * s_p:.2f}% dense {100 * s_o:.2f}%, wall {w_p:.2f} s")
-    mpc = {}
+    mpc, graphs = {}, {}
     for label, vfn in fields:
         times = []
-        traj, wall = _synced_s(lambda: receding_horizon_rollout(
-            prob, grid, vfn, x0[:n_mpc], dt=dt, n_steps=n_steps, horizon=128, replan_every=4,
-            opt_iters=8, controls=uc, noise=noise[:, :n_mpc], replan_times=times))
+        with kept_replan_graphs() as kept:
+            traj, wall = _synced_s(lambda: receding_horizon_rollout(
+                prob, grid, vfn, x0[:n_mpc], dt=dt, n_steps=n_steps, horizon=128,
+                replan_every=4, opt_iters=8, controls=uc, noise=noise[:, :n_mpc],
+                replan_times=times))
         if not (torch.isfinite(traj.cost).all() and torch.isfinite(traj.xs).all()):
             raise AssertionError(f"iLQR closed loop on the {label} value: not finite")
         mpc[label] = (traj.cost.mean().item(), traj.alive[-1].float().mean().item(), wall,
                       times)
+        if label == "dense":
+            graphs["pure"], = kept
     (c_p, s_p, w_p, t_p), (c_o, s_o, w_o, t_o) = mpc["composite"], mpc["dense"]
     log(f"[H.3] receding-horizon iLQR (horizon 128, replan every 4, 8 iterations, pure MPC) "
         f"{n_mpc} x {n_steps} steps: mean cost composite {c_p:.4f} dense {c_o:.4f}, signed_rel "
@@ -1591,21 +1667,32 @@ def phase_h3_deploy(vfn_prod, n_greedy=256, n_mpc=256, n_steps=400, dt=0.01):
     # handed to the goal's LQR from its first step inside the basin
     tl = make_terminal_lqr(prob, dt=dt, radius=0.4, device=DEVICE)   # northstar_deploy_dualmode.py:74
     t_d = []
-    traj, w_d = _synced_s(lambda: receding_horizon_rollout(
-        prob, grid, vfn_dense, x0[:n_mpc], dt=dt, n_steps=n_steps, horizon=128, replan_every=4,
-        opt_iters=8, controls=uc, noise=noise[:, :n_mpc], replan_times=t_d, terminal_lqr=tl))
+    with kept_replan_graphs() as kept:
+        traj, w_d = _synced_s(lambda: receding_horizon_rollout(
+            prob, grid, vfn_dense, x0[:n_mpc], dt=dt, n_steps=n_steps, horizon=128,
+            replan_every=4, opt_iters=8, controls=uc, noise=noise[:, :n_mpc], replan_times=t_d,
+            terminal_lqr=tl))
+    graphs["dual"], = kept
     if not (torch.isfinite(traj.cost).all() and torch.isfinite(traj.xs).all()):
         raise AssertionError("dual-mode iLQR closed loop on the dense value: not finite")
     c_d, s_d = traj.cost.mean().item(), traj.alive[-1].float().mean().item()
-    med_d, med_o = np.median(t_d[1:]), np.median(t_o[1:])
     log(f"[H.3] dual-mode iLQR (the same, terminal LQR latch at radius 0.4) on the dense value "
         f"{n_mpc} x {n_steps} steps: mean cost {c_d:.4f}, signed_rel against the pure-MPC dense "
         f"row {(c_d - c_o) / abs(c_o):+.4f}, survival {100 * s_d:.2f}%; median replan "
-        f"{1e3 * med_d:.2f} ms against the pure row's {1e3 * med_o:.2f} ms "
-        f"({100 * (med_d / med_o - 1):+.1f} %), first {t_d[0]:.2f} s; wall {w_d:.2f} s")
+        f"{1e3 * np.median(t_d[1:]):.2f} ms against the pure row's {1e3 * np.median(t_o[1:]):.2f} "
+        f"ms, first {t_d[0]:.2f} s; wall {w_d:.2f} s")
+    turns = replans_in_turns(graphs)
+    graphs.clear()
+    med_o, med_d = (float(np.median(turns[m])) for m in ("pure", "dual"))
+    log(f"[H.3] replans in turns (each row's own replan graph on its last inputs, pure, dual, "
+        f"dual, pure, {len(turns['pure'])} replays a mode): pure "
+        + ", ".join(f"{1e3 * t:.2f}" for t in turns["pure"]) + " ms; dual "
+        + ", ".join(f"{1e3 * t:.2f}" for t in turns["dual"]) + f" ms; pooled medians dual-mode "
+        f"{1e3 * med_d:.2f} ms against pure {1e3 * med_o:.2f} ms "
+        f"({100 * (med_d / med_o - 1):+.1f} %)")
     if not abs(med_d / med_o - 1) <= 0.05:
         raise AssertionError(f"dual-mode median replan {1e3 * med_d:.2f} ms is not within 5 % of "
-                             f"the pure row's {1e3 * med_o:.2f} ms")
+                             f"the pure row's {1e3 * med_o:.2f} ms (replays in turns)")
     (gc_p, _, _), (gc_o, _, _) = greedy["composite"], greedy["dense"]
     return dict(cost_rel=abs(gc_p - gc_o) / abs(gc_o), signed_rel=(c_p - c_o) / abs(c_o),
                 survival=s_p, survival_dense=s_o, dual_signed_rel=(c_d - c_o) / abs(c_o),
@@ -1750,6 +1837,12 @@ def phase_i1_kernels():
             b = bounds[entry]["bound_ms"]
             log(f"[I.1] {label}: {entry} {times[key]:.4f} ms against its bound {b:.4f} ms "
                 f"({bounds[entry]['bound_by']}): {100 * b / times[key]:.1f} % of the bound")
+        if ops.general:
+            lanes, rd = general_improve_lanes(ops, v)
+            b, t = bounds[names[0]]["bound_ms"], times["backup_kernel"]
+            log(f"[I.1] {label}: dense_backup_general at {lanes} lane(s) a node {t:.4f} ms "
+                f"({100 * b / t:.1f} % of the bound); the run-time-d kernel on the same grid "
+                f"{rd:.4f} ms ({100 * b / rd:.1f} %)")
         if name == "glider":
             glider = dict(times=times, bounds=bounds)
         del ops, v, pol, calls
@@ -2449,8 +2542,11 @@ def phase_k1_kernels():
     general ones on the glider at (15, 11, 11, 11), 9 candidates. Then ms a
     sweep (CUDA graph of 100 launches) on the non-uniform grid and on the
     uniform grid of the same shape, in this run, and the bound with the
-    spacing tables counted (each used float read once). Returns (max
-    differences, {entry: the non-uniform record for the kernels line})."""
+    spacing tables counted (each used float read once); for the general
+    improve also its lanes a node and the run-time-d kernel's ms on the
+    same grids. Returns (max differences, {entry: the non-uniform record
+    for the kernels line, and the general improve's uniform record at the
+    glider's shape})."""
     from c3sc_tpu_torch.models import make_problem
     from c3sc_tpu_torch.ops import dense_backup as db
 
@@ -2473,11 +2569,13 @@ def phase_k1_kernels():
             e = compare_sweep(ops, v, clip, pin, f"{label}, {sem} semantics", tag="K.1")
             errs[names[0]], errs[names[1]] = max(errs[names[0]], e[0]), max(errs[names[1]], e[1])
         uni = db.make_dense_operands(prob, prob.default_grid(shape), uc, DEVICE)
-        ms = {}
+        ms, lanes = {}, {}
         for form, o in (("nonuniform", ops), ("uniform", uni)):
             _, pol = db.dense_backup(o, v, with_policy=True)
             ms[form] = {names[0]: graph_ms(lambda: db.dense_backup(o, v, with_policy=True)),
                         names[1]: graph_ms(lambda: db.dense_evaluate(o, v, pol))}
+            if o.general:
+                lanes[form], ms[form]["runtime_d"] = general_improve_lanes(o, v)
         bounds = (general_sweep_bounds if ops.general else sweep_bounds)(ops)
         table = 4 * 5 * sum(shape)                        # the spacing tables' used floats
         bounds = _bounds({k: (b["bytes"] + table, b["flops"]) for k, b in bounds.items()})
@@ -2493,6 +2591,19 @@ def phase_k1_kernels():
                 log(f"[K.1] uniform 11^6 {entry} {u:.4f} ms against PERF.md's "
                     f"{K1_UNIFORM_MS[entry]} ms (H100 80GB HBM3, 700 W): "
                     f"{100 * (u / K1_UNIFORM_MS[entry] - 1):+.1f} %")
+        if ops.general:
+            ub = general_sweep_bounds(uni)[names[0]]["bound_ms"]
+            for form, bf in (("nonuniform", bounds[names[0]]["bound_ms"]), ("uniform", ub)):
+                t, rd = ms[form][names[0]], ms[form]["runtime_d"]
+                log(f"[K.1] {label}: {names[0]} on the {form} grid at {lanes[form]} lane(s) a "
+                    f"node {t:.4f} ms ({100 * bf / t:.1f} % of its bound {bf:.4f} ms); the "
+                    f"run-time-d kernel on the same grid {rd:.4f} ms ({100 * bf / rd:.1f} %)")
+            key = "glider_" + "x".join(map(str, shape))
+            record["small_grid"] = {
+                key + "_ms": ms["uniform"][names[0]], key + "_bound_ms": ub,
+                key + "_lanes": lanes["uniform"], key + "_runtime_d_ms": ms["uniform"]["runtime_d"],
+                key + "_nonuniform_lanes": lanes["nonuniform"],
+                key + "_nonuniform_runtime_d_ms": ms["nonuniform"]["runtime_d"]}
         del ops, uni, v
         torch.cuda.empty_cache()
     return errs, record
@@ -3014,11 +3125,13 @@ def _wide_bounds(ops, names, table=0):
 def phase_m1_five_controls(n=201):
     """M.1 (outside the counted run): the du = 5 double integrator, without
     and with its declarations, against the plain version by compare_sweep's
-    bars under both semantics; ms a sweep against the bound. Returns the max
-    differences of the general entries."""
+    bars under both semantics; ms a sweep against the bound, the improve at
+    its lanes a node beside the run-time-d kernel's ms on the same grid.
+    Returns (the max differences of the general entries, the improve's
+    record for the kernels line)."""
     from c3sc_tpu_torch.ops import dense_backup as db
 
-    errs = dict.fromkeys(KERNELS[2:], 0.0)
+    errs, record = dict.fromkeys(KERNELS[2:], 0.0), {}
     for declared in (False, True):
         prob = double_integrator_du5(declared)
         grid = prob.default_grid(n)
@@ -3041,9 +3154,17 @@ def phase_m1_five_controls(n=201):
             b = bounds[entry]["bound_ms"]
             log(f"[M.1] {label}: {entry} {t:.4f} ms a sweep (CUDA graph of 100); bound "
                 f"{b:.4f} ms ({bounds[entry]['bound_by']}): {100 * b / t:.1f} % of the bound")
+        lanes, rd = general_improve_lanes(ops, v)
+        b, t = bounds[KERNELS[2]]["bound_ms"], ms[KERNELS[2]]
+        log(f"[M.1] {label}: {KERNELS[2]} at {lanes} lane(s) a node {t:.4f} ms "
+            f"({100 * b / t:.1f} % of the bound); the run-time-d kernel on the same grid "
+            f"{rd:.4f} ms ({100 * b / rd:.1f} %)")
+        key = "du5_declared_" if declared else "du5_"
+        record.update({key + "ms": t, key + "bound_ms": b, key + "lanes": lanes,
+                       key + "runtime_d_ms": rd})
         del ops, v, pol
         torch.cuda.empty_cache()
-    return errs
+    return errs, record
 
 
 def phase_m2_nine_states(n=5):
@@ -3098,8 +3219,41 @@ def phase_m2_nine_states(n=5):
                                      nonuniform_at=label)
         del ops, v, pol, calls
         torch.cuda.empty_cache()
+    phase_m2_eight_states()
     phase_m2_twelve_states(record)
     return errs, record
+
+
+def phase_m2_eight_states(n=6):
+    """M.2 at d = 8: the compiled general improve (with the policy's
+    epilogue) on the family's eight-state member at n^8 (3 candidates), on
+    the uniform and a tanh grid, beside the run-time-d kernel on the same
+    grid: bit-equal value and policy, ms a sweep (a CUDA graph of 100
+    launches) against the bound, with the lanes a node."""
+    from c3sc_tpu_torch.ops import dense_backup as db
+
+    prob = nine_states(8)
+    for form, grid in (("uniform", prob.default_grid(n)), ("tanh", tanh_grid(prob, (n,) * 8))):
+        ops = db.make_dense_operands(prob, grid, prob.control_candidates(3), DEVICE)
+        label = f"{prob.name} {n}^8 {form}, {ops.uc.shape[0]} candidates"
+        v = torch.as_tensor(np.random.default_rng(0).uniform(0, 5, grid.shape),
+                            dtype=torch.float32, device=DEVICE)
+        kv, kpol = db.dense_backup(ops, v, with_policy=True)
+        rv, rpol = db.dense_backup_general(ops, v, with_policy=True, _runtime_d=True)
+        if not (torch.equal(kv, rv) and _policy_equal(kpol, rpol)):
+            raise AssertionError(f"{label}: the compiled general improve and the run-time-d "
+                                 f"one differ")
+        del kv, rv, kpol, rpol
+        t = graph_ms(lambda: db.dense_backup(ops, v, with_policy=True))
+        lanes, rd = general_improve_lanes(ops, v)
+        bound = _wide_bounds(ops, KERNELS[2:], 0 if grid.uniform else 4 * 5 * sum(grid.shape))
+        b = bound[KERNELS[2]]["bound_ms"]
+        log(f"[M.2] {label}: {KERNELS[2]} at {lanes} lane(s) a node {t:.4f} ms "
+            f"({100 * b / t:.1f} % of its bound {b:.4f} ms, {bound[KERNELS[2]]['bound_by']}); "
+            f"the run-time-d kernel on the same grid {rd:.4f} ms ({100 * b / rd:.1f} %), "
+            f"bit-equal")
+        del ops, v
+        torch.cuda.empty_cache()
 
 
 def phase_m2_twelve_states(record, n=4):
@@ -3170,10 +3324,11 @@ def phase_m_solves():
 
 
 def phase_m_kernels():
-    """M.1 and M.2 (outside the counted run): (max differences, M.2's record)."""
-    errs = phase_m1_five_controls()
+    """M.1 and M.2 (outside the counted run): (max differences, M.2's
+    record, M.1's record of the general improve)."""
+    errs, du5 = phase_m1_five_controls()
     wide_errs, record = phase_m2_nine_states()
-    return {**errs, **wide_errs}, record
+    return {**errs, **wide_errs}, record, du5
 
 
 def _entries():
@@ -3350,7 +3505,7 @@ def main():
     # phase L (parallel/) reaches no K1 entry: its counts are read and logged, none required
     counted("L", lambda: phase_l_parallel(fused), totals=totals, required=())
     marks.append(("L", time.perf_counter()))
-    m_errs, wide = phase_m_kernels()
+    m_errs, wide, du5 = phase_m_kernels()
     counted("M", phase_m_solves, totals=totals, required=KERNELS[2:] + WIDE)
     marks.append(("M", time.perf_counter()))
     errs = {name: max(errs.get(name, 0.0), i_errs.get(name, 0.0), k_errs.get(name, 0.0),
@@ -3365,18 +3520,23 @@ def main():
     # PyTorch call computes any of these sweeps, so there is no library time.
     # The nonuniform_* keys: K.1's times on tanh grids (the quadcopter 11^6, the
     # glider (15, 11, 11, 11)) beside the uniform grid of the same shape, and
-    # the launches of K.1's non-uniform solves on the main path. The wide
+    # the launches of K.1's non-uniform solves on the main path. The general
+    # improve's keys glider_15x11x11x11_* (K.1, uniform grid) and du5_*,
+    # du5_declared_* (M.1): its time, bound and lanes a node where the grid
+    # is small, and the run-time-d kernel's time on the same grid. The wide
     # entries' times and bounds are M.2's, at the nine-state problem's 5^9 with
     # 3 candidates, and its tanh grid's beside them
     at = {"dense_backup": (times[11], bounds[11]), "dense_evaluate": (times[11], bounds[11]),
           "dense_backup_general": (gen_times, gen_bounds),
           "dense_evaluate_general": (gen_times, gen_bounds)}
+    small = {"dense_backup_general": {**nonuniform.pop("small_grid"), **du5}}
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": at[name][0][key + "_kernel"], "plain_ms": at[name][0][key + "_plain"],
          "bound_ms": at[name][1][name]["bound_ms"], "bound_by": at[name][1][name]["bound_by"],
-         "library_ms": None, **nonuniform[name], "nonuniform_launches": nu_launches[name]}
+         "library_ms": None, **nonuniform[name], "nonuniform_launches": nu_launches[name],
+         **small.get(name, {})}
         for name, key, replaces in (
             ("dense_backup", "backup", "c3sc_tpu/ops/pallas_dense.py:107"),
             ("dense_evaluate", "evaluate", "c3sc_tpu/solvers/dense.py:122"),

@@ -1,8 +1,8 @@
 """K1's run-time-d kernels in several source variants, side by side on one card.
 
-Each variant is a copy of ``c3sc_tpu_torch/`` (with ``chip_smoke.py`` and
-``tests/``) under ``.chip_scratch/wide_variants/<name>/``, whose
-``csrc/dense_backup.cu`` may be changed by the textual patches below, joined
+Each variant is a copy of ``c3sc_tpu_torch/`` (with ``chip_smoke.py``,
+``tests/`` and ``experiments/artifacts/``) under ``.chip_scratch/wide_variants/<name>/``, whose
+``csrc/dense_backup.cuh`` may be changed by the textual patches below, joined
 by ``+`` in its name. The script builds every variant's library at once (one
 ``nvcc`` process each) and collects the ptxas lines (registers, stack frame,
 spills) of their run-time-d kernels. Then, in each variant of ``--order`` in
@@ -24,10 +24,8 @@ blocks of 128 threads), ``nopipe`` (no pipelined candidate loop),
 ``fold`` (the non-uniform evaluate keeps only the spacing and neighbour
 value its drift's sign picks), ``cap16`` (no capacity 12), ``scal`` (the Spacing tables read as
 scalars), ``tsm`` (the tables copied into shared memory first), ``fwd`` (all
-coordinates decoded before any neighbour is read), ``nov`` (a
-diagnostic with wrong values: no neighbour loads) and ``parent_kernels``
-(the parent's ``dense_backup.cu`` given the ``runtime_d`` argument of this
-tree's C interface).
+coordinates decoded before any neighbour is read) and ``nov`` (a
+diagnostic with wrong values: no neighbour loads).
 
     python3 experiments/torch_wide_variants.py --parent DIR \\
         --order parent,new,fold,new,parent --m2 new --smoke new \\
@@ -50,7 +48,7 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ROOT = REPO / ".chip_scratch" / "wide_variants"
 OUT = REPO / "chiprun_out" / "wide_variants"
-KERNEL = pathlib.Path("c3sc_tpu_torch") / "csrc" / "dense_backup.cu"
+KERNEL = pathlib.Path("c3sc_tpu_torch") / "csrc" / "dense_backup.cuh"
 
 
 def _replace(text, old, new):
@@ -142,7 +140,8 @@ def patch_tsm(s):
         a = s.index(kind)
         b = s.index("  if (n >= (Idx)N) return;\n", a)
         s = s[:b] + stage + s[b:]
-    s = _replace(s, "lo, hi, pin, w);", "lo, hi, pin, w, tab);")
+    s = _replace(s, "g, clip, lo, hi, pin, w);\n  if (op.s2 != nullptr) wide_",
+                 "g, clip, lo, hi, pin, w, tab);\n  if (op.s2 != nullptr) wide_")
     return _replace(s, "0, 0.0f, 0.0f, 0, w);", "0, 0.0f, 0.0f, 0, w, tab);")
 
 
@@ -177,54 +176,25 @@ def patch_fwd(s):
                     "  Idx ci[DCAP];\n  Idx rem = n;\n#pragma unroll\n  for (int j = DCAP - 1; j >= 0; --j) {")
 
 
-def patch_parent_kernels(parent):
-    """The parent's dense_backup.cu with the runtime_d argument of this tree's C interface."""
-    def patch(_):
-        s = (parent / KERNEL).read_text()
-        s = _replace(s, "  int wide;\n  cudaStream_t stream;\n  int preload;\n};\n\ntemplate <int D, int NU",
-                     "  int wide;\n  int runtime_d;\n  cudaStream_t stream;\n  int preload;\n};\n\n"
-                     "template <int D, int NU")
-        s = _replace(s, "  switch (c.d) {\n    case 1: return run_general<1>(c, N);",
-                     "  if (c.runtime_d) return run_general_wide(c, N);\n"
-                     "  switch (c.d) {\n    case 1: return run_general<1>(c, N);")
-        s = _replace(s, "float lo, float hi, int pin_input, int wide, void* stream) {\n"
-                        "  const GeneralCall c{v, nullptr,",
-                     "float lo, float hi, int pin_input, int wide, int runtime_d,\n"
-                     "                              void* stream) {\n  const GeneralCall c{v, nullptr,")
-        s = _replace(s, "                      pin_input, wide, (cudaStream_t)stream, 0};",
-                     "                      pin_input, wide, runtime_d, (cudaStream_t)stream, 0};")
-        s = _replace(s, "const float* nu, float beta, int wide, void* stream) {\n"
-                        "  if (best == nullptr) return (int)cudaErrorInvalidValue;\n"
-                        "  const GeneralCall c{v, best,",
-                     "const float* nu, float beta, int wide, int runtime_d,\n"
-                     "                                void* stream) {\n"
-                     "  if (best == nullptr) return (int)cudaErrorInvalidValue;\n"
-                     "  const GeneralCall c{v, best,")
-        return _replace(s, "0, 0.0f, 0.0f, 0, wide,\n                      (cudaStream_t)stream, 0};",
-                        "0, 0.0f, 0.0f, 0, wide,\n                      runtime_d, "
-                        "(cudaStream_t)stream, 0};")
-    return patch
-
-
 PATCHES = {"b128": patch_b128, "nopipe": patch_nopipe, "fold": patch_fold, "cap16": patch_cap16,
            "nov": patch_nov, "scal": patch_scal, "tsm": patch_tsm, "fwd": patch_fwd}
 
 
-def make_variant(name, parent):
-    """Copy the variant's tree under ROOT and patch its kernel source."""
-    dst = ROOT / name
+def make_variant(name, parent, root=ROOT, patches=PATCHES):
+    """Copy the variant's tree under ``root`` and patch its kernel source
+    (the names joined by ``+`` in ``name``, from ``patches``)."""
+    dst = root / name
     shutil.rmtree(dst, ignore_errors=True)
     src = parent if name == "parent" else REPO
     ignore = shutil.ignore_patterns("_build", "__pycache__")
     shutil.copytree(src / "c3sc_tpu_torch", dst / "c3sc_tpu_torch", ignore=ignore)
     shutil.copytree(src / "tests", dst / "tests", ignore=ignore)
+    shutil.copytree(src / "experiments" / "artifacts", dst / "experiments" / "artifacts")
     shutil.copy(src / "chip_smoke.py", dst / "chip_smoke.py")
     parts = [p for p in name.split("+") if p not in ("new", "parent")]
     for part in parts:
-        if part == "parent_kernels":
-            patch = patch_parent_kernels(parent)
-        elif part in PATCHES:
-            patch = PATCHES[part]
+        if part in patches:
+            patch = patches[part]
         else:
             raise ValueError(f"unknown variant {part}")
         (dst / KERNEL).write_text(patch((dst / KERNEL).read_text()))
@@ -246,18 +216,18 @@ def build_all(dirs):
     return took
 
 
-def ptxas_lines(d):
-    """The ptxas resource lines of the run-time-d kernels in a variant's build.log."""
+def ptxas_lines(d, kernels=r"wide_dense_\w+?kernel"):
+    """The ptxas resource lines of the kernels (a regex of their names;
+    default the run-time-d ones) in a variant's build.log."""
     logs = list((d / "c3sc_tpu_torch" / "_build").glob("*/build.log"))
     if not logs:
         return ["no build.log"]
     text, out = logs[0].read_text(), []
-    for m in re.finditer(r"Compiling entry function '(_Z\w*wide_dense_\w+?kernel(I\w+?E)E\w*)'"
+    for m in re.finditer(r"Compiling entry function '(_Z\w*?(" + kernels + r")(I\w+?E)E\w*)'"
                          r".*?(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                          r"loads.*?Used (\d+) registers", text, re.S):
-        kind = re.search(r"wide_dense_(backup|evaluate)", m.group(1)).group(1)
-        out.append(f"{kind}{m.group(2)}: registers {m.group(6)}, stack frame {m.group(3)} B, "
-                   f"spill stores {m.group(4)} B, spill loads {m.group(5)} B")
+        out.append(f"{m.group(2)}{m.group(3)}: registers {m.group(7)}, stack frame {m.group(4)} B, "
+                   f"spill stores {m.group(5)} B, spill loads {m.group(6)} B")
     return out
 
 
@@ -337,10 +307,10 @@ def time_here(out_path):
     pathlib.Path(out_path).write_text(json.dumps(rec, indent=1))
 
 
-def run(name, d, argv, log_name, keep=lambda line: True):
+def run(name, d, argv, log_name, keep=lambda line: True, out=OUT):
     t0 = time.perf_counter()
     proc = subprocess.run(argv, cwd=d, capture_output=True, text=True)
-    (OUT / log_name).write_text(proc.stdout + proc.stderr)
+    (out / log_name).write_text(proc.stdout + proc.stderr)
     lines = [f"== {name}: {' '.join(argv[1:])[:80]} -> rc {proc.returncode} in "
              f"{time.perf_counter() - t0:.1f} s"]
     lines += [f"   {line}" for line in proc.stdout.splitlines() if keep(line)]
@@ -350,7 +320,7 @@ def run(name, d, argv, log_name, keep=lambda line: True):
     return proc.returncode, lines
 
 
-def sass(d, pattern, log_name):
+def sass(d, pattern, log_name, out_dir=OUT):
     """cuobjdump's SASS of the variant's kernels whose mangled name matches."""
     lib = next((d / "c3sc_tpu_torch" / "_build").glob("*/*.so"))
     text = next((d / "c3sc_tpu_torch" / "_build").glob("*/build.log")).read_text()
@@ -360,7 +330,7 @@ def sass(d, pattern, log_name):
         proc = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", "-fun", fn, str(lib)],
                               capture_output=True, text=True)
         out.append(proc.stdout + proc.stderr)
-    (OUT / log_name).write_text("\n".join(out))
+    (out_dir / log_name).write_text("\n".join(out))
 
 
 def main():

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on the card: K1 (csrc/dense_backup.cu) against its
+"""The port's CUDA kernels on the card: K1 (csrc/dense_backup.cuh) against its
 plain PyTorch version (its structured entries and its general entries, the
 latter also in their run-time-d form for d > 8, on uniform and non-uniform
 grids), the refusals of its wrapper, and dense_vi and the local patch
@@ -252,14 +252,19 @@ def test_nonuniform_patch_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("name,shape,n_cand", [("lq", (21, 21), 9),
-                                               ("glider", (7, 5, 5, 6), 3)])
+                                               ("glider", (7, 5, 5, 6), 3),
+                                               ("synthetic-6x4", (5, 4, 5, 4, 5, 4), 3),
+                                               ("quadcopter7", (5, 4, 5, 4, 5, 4, 5), 5)])
 def test_every_entry_on_a_nonuniform_grid(cuda, name, shape, n_cand):
     """Each K1 entry on a tanh grid against its plain version: 2e-4 (the
     Pallas test's bar) with argmins equal off near-ties; the evaluate under
     the improve's policy bit-equal to the improve, the policy bit-equal to
     gather_policy, and 64-bit indices bit-equal to 32-bit. LQ takes the
-    structured entries, the glider (drift undeclared) the general ones."""
-    tp = tm.make_problem(name)
+    structured entries at (2, 1), a synthetic problem at (d, du) = (6, 4)
+    and quadcopter7 at (7, 2), the glider (drift undeclared) the general
+    ones."""
+    tp = (_synthetic_problem(6, 4) if name == "synthetic-6x4"
+          else tm.make_problem(name, **(QUAD if name == "quadcopter7" else {})))
     periodic = tp.default_grid(shape).periodic
     grid = Grid.create(tp.lb, tp.ub, shape, periodic,
                        nodes=tanh_node_sets(tp.lb, tp.ub, shape, periodic))
@@ -584,18 +589,29 @@ def _tanh(grid):
 
 @pytest.mark.parametrize("with_policy", [False, True], ids=["bare", "policy"])
 @pytest.mark.parametrize("nonuniform", [False, True], ids=["uniform", "tanh"])
-@pytest.mark.parametrize("case", ["glider-4", "states-8"])
+@pytest.mark.parametrize("case", ["glider-4", "states-8", "glider-15x11", "du5-21",
+                                  "du5-21-declared", "du5-201", "du5-201-declared"])
 def test_runtime_d_matches_compiled_on_card(cuda, case, nonuniform, with_policy):
     """The run-time-d kernels (the wrappers' _runtime_d switch) at d <= 8
     against the compiled general entries on the same grid: the glider's d =
-    4 (9 candidates; shared variances and cost) and an eight-state C3Control
-    problem (3 candidates; per-candidate variances and cost),
-    under both semantics, with and without the improve's policy epilogue.
-    They do the same arithmetic in the same order, so value, argmin, policy
-    and the evaluate sweep under that policy must agree bit for bit. The
-    switched launches count on the wide entries."""
-    tp, shape, per_dim = {"glider-4": (tm.make_problem("glider"), (11, 9, 9, 9), 9),
-                          "states-8": (many_states(8), 5, 3)}[case]
+    4 (9 candidates; shared variances and cost) at (11, 9, 9, 9) and at the
+    parity tests' (15, 11, 11, 11), an eight-state C3Control problem (3
+    candidates; per-candidate variances and cost) and the du = 5 double
+    integrator (243 candidates) at 21^2 and 201^2, without and with its
+    declarations, under both semantics, with and without the improve's
+    policy epilogue. They do the same arithmetic in the same order, so
+    value, argmin, policy and the evaluate sweep under that policy must
+    agree bit for bit, whatever lanes a node the compiled improve takes
+    (its rule gives every case here more than one on an H100). The switched
+    launches count on the wide entries."""
+    tp, shape, per_dim = {
+        "glider-4": (tm.make_problem("glider"), (11, 9, 9, 9), 9),
+        "states-8": (many_states(8), 5, 3),
+        "glider-15x11": (tm.make_problem("glider"), (15, 11, 11, 11), 9),
+        "du5-21": (double_integrator_du5(), 21, 3),
+        "du5-21-declared": (double_integrator_du5(True), 21, 3),
+        "du5-201": (double_integrator_du5(), 201, 3),
+        "du5-201-declared": (double_integrator_du5(True), 201, 3)}[case]
     grid = tp.default_grid(shape)
     if nonuniform:
         grid = _tanh(grid)
@@ -621,6 +637,59 @@ def test_runtime_d_matches_compiled_on_card(cuda, case, nonuniform, with_policy)
         assert torch.equal(db.dense_evaluate_general(ops, v, policy, _runtime_d=True),
                            db.dense_evaluate_general(ops, v, policy))
     assert [a - b for a, b in zip(counts(), before)] == [2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("nonuniform", [False, True], ids=["uniform", "tanh"])
+@pytest.mark.parametrize("bare", [False, True], ids=["glider", "bare"])
+@pytest.mark.parametrize("per_dim", [3, 9])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 32])
+def test_general_improve_lanes_on_card(cuda, lanes, per_dim, bare, nonuniform):
+    """The compiled general improve at L lanes a node (the _lanes switch; 1,
+    2 and 4 are template arguments of the uniform form, 8 and 32 and the
+    non-uniform form take L at run time) against one lane and against the
+    run-time-d kernel, bit for bit (value,
+    argmin, the policy's operands), under both semantics and both index
+    widths, on the glider's (15, 11, 11, 11): 19,965 nodes, so no block is
+    whole at any L; with its declared variances and cost, and stripped of
+    them (per-candidate s2c and gc: the epilogue's 2 d + 1 lines). The
+    candidates are the problem's twice over and its first once more (7 and
+    19: fewer than 8 and 32 lanes, a multiple of none), so every rhs is tied
+    with one on another lane and the first index must win. v holds NaN and
+    +inf at some nodes, which leaves the rows around them with no finite
+    rhs: they must end on candidate 0."""
+    tp = tm.make_problem("glider")
+    if bare:
+        tp = _bare(tp)
+    grid = tp.default_grid((15, 11, 11, 11))
+    if nonuniform:
+        grid = _tanh(grid)
+    uc = tp.control_candidates(per_dim)
+    uc = np.concatenate([uc, uc, uc[:1]])
+    ops = db.make_dense_operands(tp, grid, uc, cuda)
+    assert ops.general and (ops.s2c_k is not None) == bare and (ops.gc is not None) == bare
+    v = _random_v(grid.shape, cuda).reshape(-1)
+    v[::997] = float("nan")
+    v[5::1009] = float("inf")
+    v = v.reshape(grid.shape)
+    for clip, pin in ((tp.value_bounds, True), (None, False)):
+        want, wpol = db.dense_backup_general(ops, v, clip, pin, with_policy=True, _lanes=1)
+        wide, rpol = db.dense_backup_general(ops, v, clip, pin, with_policy=True,
+                                             _runtime_d=True)
+        assert torch.equal(wide, want) and _same_policy(rpol, wpol)
+        for index64 in (False, True):
+            got, gpol = db.dense_backup_general(ops, v, clip, pin, with_policy=True,
+                                                _lanes=lanes, _wide_index=index64)
+            assert torch.equal(got, want) and _same_policy(gpol, wpol)
+        assert (wpol.best < len(uc) // 2).all()   # the first of two equal rhs
+    rhs = db.candidate_rhs(ops, v)                # dense_vi's semantics: NaN stays
+    dead = ~(rhs < 3.4e38).any(dim=0)
+    assert dead.any() and (wpol.best[dead] == 0).all()
+
+
+def _same_policy(a, b):
+    return all((x is None) == (y is None) and (x is None or torch.equal(x, y))
+               for x, y in ((a.best, b.best), (a.fpol_k, b.fpol_k), (a.s2pol_k, b.s2pol_k),
+                            (a.gpol, b.gpol)))
 
 
 def _wide_cases():
