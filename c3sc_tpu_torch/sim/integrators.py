@@ -18,6 +18,7 @@ import torch
 from c3sc_tpu_torch.device import const_tensor, resolve_device
 from c3sc_tpu_torch.grids import Grid
 from c3sc_tpu_torch.models.base import Boundary, ControlProblem
+from c3sc_tpu_torch.utils.metrics import span
 
 METHODS = ("euler_maruyama", "euler", "rk4", "rkf45")
 
@@ -144,26 +145,27 @@ def rollout(
     for i in range(n_steps):
         if i % policy_every == 0:
             u = policy(x)
-        nz = None
-        if stochastic:
-            nz = noise[i] if noise is not None else torch.randn(
-                (B, problem.dw), generator=generator, dtype=dtype, device=dev)
-        xn, absorbed_now = _apply_boundaries(
-            problem, grid, _advance(problem, method, x, u, dtf, sqdt, nz))
-        newly = absorbed_now & alive
-        disc = torch.exp(-problem.beta * t)
-        # running cost while alive; exit cost charged once on absorption
-        zero = torch.zeros_like(cost)
-        cost = cost + torch.where(alive, disc * problem.stage_cost(x, u) * dtf, zero)
-        cost = cost + torch.where(
-            newly, torch.exp(-problem.beta * (t + dtf)) * _exit_value(problem, xn), zero)
-        alive_next = alive & ~absorbed_now
-        x = torch.where(alive[:, None], xn, x)  # freeze absorbed trajectories
-        texit = torch.where(newly, t + dtf, texit)
-        t = t + dtf
-        alive = alive_next
-        xs.append(x)
-        us.append(u)
-        alives.append(alive)
+        with span("integrate"):
+            nz = None
+            if stochastic:
+                nz = noise[i] if noise is not None else torch.randn(
+                    (B, problem.dw), generator=generator, dtype=dtype, device=dev)
+            xn, absorbed_now = _apply_boundaries(
+                problem, grid, _advance(problem, method, x, u, dtf, sqdt, nz))
+            newly = absorbed_now & alive
+            disc = torch.exp(-problem.beta * t)
+            # running cost while alive; exit cost charged once on absorption
+            zero = torch.zeros_like(cost)
+            cost = cost + torch.where(alive, disc * problem.stage_cost(x, u) * dtf, zero)
+            cost = cost + torch.where(
+                newly, torch.exp(-problem.beta * (t + dtf)) * _exit_value(problem, xn), zero)
+            alive_next = alive & ~absorbed_now
+            x = torch.where(alive[:, None], xn, x)  # freeze absorbed trajectories
+            texit = torch.where(newly, t + dtf, texit)
+            t = t + dtf
+            alive = alive_next
+            xs.append(x)
+            us.append(u)
+            alives.append(alive)
     return Trajectory(xs=torch.stack(xs), us=torch.stack(us), cost=cost,
                       alive=torch.stack(alives), exit_time=texit)

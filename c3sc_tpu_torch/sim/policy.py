@@ -15,6 +15,7 @@ from c3sc_tpu_torch.models.base import ControlProblem
 from c3sc_tpu_torch.ops import mca
 from c3sc_tpu_torch.ops.argmin import lbfgs_minimize, pgd_minimize
 from c3sc_tpu_torch.solvers.ttvi import check_refine_method, rhs_continuous
+from c3sc_tpu_torch.utils.metrics import span
 
 
 def _neighbor_values(grid: Grid, value_fn: Callable, xf):
@@ -71,21 +72,25 @@ def make_implicit_policy(problem: ControlProblem, grid: Grid, value_fn: Callable
     controls = torch.as_tensor(controls, dtype=torch.float32)
 
     def policy(x):
-        uc = controls.to(x.device)
-        xf = x.reshape(-1, problem.dx)
-        vnb = _neighbor_values(grid, value_fn, xf)
-        rhs = _rhs_all(problem, grid, vnb, uc, xf)
-        u = uc[torch.argmin(rhs, dim=-1)]                       # [B, du]
-        if refine_steps > 0:
-            if value_grad_fn is not None:
-                # grad v does not depend on u: once per state
-                gv = value_grad_fn(xf)
+        with span("policy", device=False):
+            uc = controls.to(x.device)
+            xf = x.reshape(-1, problem.dx)
+            with span("policy.values"):
+                vnb = _neighbor_values(grid, value_fn, xf)
+            with span("policy.argmin"):
+                rhs = _rhs_all(problem, grid, vnb, uc, xf)
+                u = uc[torch.argmin(rhs, dim=-1)]                       # [B, du]
+                if refine_steps > 0:
+                    if value_grad_fn is not None:
+                        # grad v does not depend on u: once per state
+                        gv = value_grad_fn(xf)
 
-                def f(ub):
-                    return problem.stage_cost(xf, ub) + torch.sum(gv * problem.drift(xf, ub), -1)
-            else:
-                f = rhs_continuous(problem, grid, xf, vnb)
-            u, _ = minimize(f, u, problem.ulb, problem.uub, n_iters=refine_steps)
-        return u.reshape(*x.shape[:-1], problem.du)
+                        def f(ub):
+                            return problem.stage_cost(xf, ub) + torch.sum(
+                                gv * problem.drift(xf, ub), -1)
+                    else:
+                        f = rhs_continuous(problem, grid, xf, vnb)
+                    u, _ = minimize(f, u, problem.ulb, problem.uub, n_iters=refine_steps)
+            return u.reshape(*x.shape[:-1], problem.du)
 
     return policy

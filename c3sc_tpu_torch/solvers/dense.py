@@ -40,6 +40,7 @@ from c3sc_tpu_torch.ops.dense_backup import (add_launches, dense_backup, dense_e
                                              launch_counts, make_dense_operands,
                                              neighbor_values, preload)
 from c3sc_tpu_torch.solvers.ttvi import refine_controls
+from c3sc_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -164,7 +165,8 @@ class GraphedSweeps:
         if n < 1:
             return v, torch.tensor(float("inf"), device=v.device)
         if self.graphs is None:
-            self._capture(v)
+            with span("dense.capture", device=False):
+                self._capture(v)
         self.v.copy_(v)
         sweep, last = self.graphs
         for _ in range(n - 1):
@@ -201,7 +203,8 @@ def make_dense_step(problem: ControlProblem, grid: Grid, controls, device=None,
     eager loop on the CPU; True or False forces one or the other (True on
     the CPU raises ValueError). The two are bit-equal.
     """
-    ops = make_dense_operands(problem, grid, controls, device)
+    with span("dense.operands", device=False):
+        ops = make_dense_operands(problem, grid, controls, device)
 
     def one_outer(v):
         # improve (argmin over candidates), then evaluate under that policy;
@@ -238,43 +241,54 @@ def dense_vi(
     outer sweep < tol, or the plateau stop at the f32 residual floor.
     ``cuda_graph`` is ``make_dense_step``'s: on a CUDA device every outer
     sweep replays one CUDA graph unless it is False.
+
+    Spans (``utils.metrics``, host time only): ``dense_vi`` around the
+    solve, and inside it ``dense.operands`` (``make_dense_operands``),
+    ``dense.sweeps`` (a chunk; the first holds the graphs' capture,
+    ``dense.capture``) and ``dense.read`` (each read of the device on the
+    host).
     """
-    if controls is None:
-        controls = problem.control_candidates(n_controls)
-    step, init_v = make_dense_step(problem, grid, controls, device, eval_sweeps, cuda_graph)
-    v = init_v if v0 is None else torch.as_tensor(
-        v0, dtype=torch.float32, device=init_v.device).reshape(grid.shape).contiguous()
-    history = []
-    done = 0
-    best_res, stall = float("inf"), 0
-    floored = False
-    res = float("inf")
-    while done < max_outer:
-        n = min(chunk, max_outer - done)
-        v, res = step(v, n)
-        res = float(res)
-        done += n
-        history.append(res)
-        if verbose:
-            print(f"[dense_vi:{problem.name}] outer={done} residual={res:.3e}")
-        if res < tol:
-            break
-        # plateau stop: in f32 the sup-norm residual bottoms out at the value
-        # scale's quantization floor and never reaches a tighter tol — stop
-        # once it stops improving, but only near that floor (or near tol), so
-        # a weakly discounted problem that improves slowly keeps going.
-        scale = float(torch.max(torch.abs(v)))
-        floor_gate = max(100.0 * np.finfo(np.float32).eps * scale, 100.0 * tol)
-        if res < best_res * 0.99:
-            best_res, stall = res, 0
-        elif res < floor_gate:
-            stall += 1
-            if stall >= 3:
-                floored = True
-                if verbose:
-                    print(f"[dense_vi:{problem.name}] residual floor "
-                          f"{res:.3e} (no improvement for {stall} chunks)")
+    with span("dense_vi", device=False):
+        if controls is None:
+            controls = problem.control_candidates(n_controls)
+        step, init_v = make_dense_step(problem, grid, controls, device, eval_sweeps, cuda_graph)
+        v = init_v if v0 is None else torch.as_tensor(
+            v0, dtype=torch.float32, device=init_v.device).reshape(grid.shape).contiguous()
+        history = []
+        done = 0
+        best_res, stall = float("inf"), 0
+        floored = False
+        res = float("inf")
+        while done < max_outer:
+            n = min(chunk, max_outer - done)
+            with span("dense.sweeps", device=False):
+                v, res = step(v, n)
+            with span("dense.read", device=False):
+                res = float(res)
+            done += n
+            history.append(res)
+            if verbose:
+                print(f"[dense_vi:{problem.name}] outer={done} residual={res:.3e}")
+            if res < tol:
                 break
+            # plateau stop: in f32 the sup-norm residual bottoms out at the
+            # value scale's quantization floor and never reaches a tighter
+            # tol — stop once it stops improving, but only near that floor
+            # (or near tol), so a weakly discounted problem that improves
+            # slowly keeps going.
+            with span("dense.read", device=False):
+                scale = float(torch.max(torch.abs(v)))
+            floor_gate = max(100.0 * np.finfo(np.float32).eps * scale, 100.0 * tol)
+            if res < best_res * 0.99:
+                best_res, stall = res, 0
+            elif res < floor_gate:
+                stall += 1
+                if stall >= 3:
+                    floored = True
+                    if verbose:
+                        print(f"[dense_vi:{problem.name}] residual floor "
+                              f"{res:.3e} (no improvement for {stall} chunks)")
+                    break
     return DenseSolution(v=v, residual=res, sweeps=done, residual_history=history,
                          controls=np.asarray(controls), floored=floored)
 

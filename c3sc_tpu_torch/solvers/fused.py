@@ -64,6 +64,7 @@ from c3sc_tpu_torch.ops.tt import (TT, _concrete_ranks, _repad, tt_add, tt_gathe
 from c3sc_tpu_torch.seeds import seed_stream
 from c3sc_tpu_torch.solvers.ttvi import (bellman_residual_sample, check_refine_method,
                                          refine_controls)
+from c3sc_tpu_torch.utils.metrics import GraphSpans, recording, span
 
 
 class FusedSolver(NamedTuple):
@@ -613,7 +614,7 @@ def make_fiber_backup(problem: ControlProblem, grid: Grid, uc, rmax: int,
     def _eval_fibers(cores, ranks, k, left_k, right_k1):
         """Bellman backup on the structured fiber block via the amortized
         neighbor evaluator (no per-point TT gathers)."""
-        with torch.profiler.record_function("fiber_backup"):
+        with span("fiber_backup"):
             n = shape[k]
             flat_idx = _build_idx(k, left_k, right_k1).reshape(-1, d)
             if debug_identity:
@@ -834,8 +835,8 @@ def make_fused_vi(
         if probe_x0 is None:
             prng = np.random.default_rng(4242)
             lbn, ubn = np.asarray(problem.lb), np.asarray(problem.ub)
-            mid, span = (lbn + ubn) / 2, (ubn - lbn) / 2
-            probe_x0 = mid + 0.5 * span * prng.uniform(-1, 1, (probe_rollouts, d))
+            mid, half = (lbn + ubn) / 2, (ubn - lbn) / 2
+            probe_x0 = mid + 0.5 * half * prng.uniform(-1, 1, (probe_rollouts, d))
         probe_x0 = torch.as_tensor(np.asarray(probe_x0), dtype=dtype, device=device)
         # one fixed noise batch for every probe (the JAX package reuses one key)
         probe_noise = torch.randn((probe_steps, probe_x0.shape[0], problem.dw),
@@ -891,19 +892,20 @@ def make_fused_vi(
         cheapest per sweep). ``False`` evaluates BOTH halves against the
         fixed (tgt_cores, tgt_ranks)."""
         (cores_prev, ranks_prev, left, right, rl, rr, rlf, rrf, rows_l, rows_r) = st
-        # the carry's tensors are never written in place: clone, then assign
-        # at the static k
-        left, right, rl, rr, rlf, rrf, rows_l, rows_r = (
-            t.clone() for t in (left, right, rl, rr, rlf, rrf, rows_l, rows_r))
-        new_cores = list(cores_prev)
-        one = torch.ones((), dtype=torch.int32, device=device)
-        new_ranks = [one] * (d + 1)
+        with span("fused.rest"):
+            # the carry's tensors are never written in place: clone, then
+            # assign at the static k
+            left, right, rl, rr, rlf, rrf, rows_l, rows_r = (
+                t.clone() for t in (left, right, rl, rr, rlf, rrf, rows_l, rows_r))
+            new_cores = list(cores_prev)
+            one = torch.ones((), dtype=torch.int32, device=device)
+            new_ranks = [one] * (d + 1)
 
         # ---------------- left-to-right half sweep ----------------
         for k in range(d - 1):
             n = shape[k]
             vals = _eval_fibers(tgt_cores, tgt_ranks, k, left[k], right[k + 1])
-            with torch.profiler.record_function("core_fit"):
+            with span("core_fit"):
                 # rows (a, i): the left mask repeats over the n nodes
                 row_mask = (arR < rl[k])[:, None].expand(R, n).reshape(-1).to(dtype)
                 col_mask = (arR < rr[k + 1]).to(dtype)
@@ -929,11 +931,12 @@ def make_fused_vi(
         # last core: direct evaluation
         n = shape[d - 1]
         vals = _eval_fibers(tgt_cores, tgt_ranks, d - 1, left[d - 1], right[d])
-        row_mask = (arR < rl[d - 1])[:, None].expand(R, n).reshape(-1).to(dtype)
-        C = vals.reshape(R * n, R) * row_mask[:, None]
-        C = C * (arR < 1).to(dtype)[None, :]
-        new_cores[d - 1] = C.reshape(R, n, R)
-        ranks_mid = torch.stack([one] + [rl[k + 1] for k in range(d - 1)] + [one])
+        with span("fused.rest"):
+            row_mask = (arR < rl[d - 1])[:, None].expand(R, n).reshape(-1).to(dtype)
+            C = vals.reshape(R * n, R) * row_mask[:, None]
+            C = C * (arR < 1).to(dtype)[None, :]
+            new_cores[d - 1] = C.reshape(R, n, R)
+            ranks_mid = torch.stack([one] + [rl[k + 1] for k in range(d - 1)] + [one])
         # mid-sweep TT (left-interpolatory)
         cores_mid = tuple(new_cores)
         if self_targeted:
@@ -945,7 +948,7 @@ def make_fused_vi(
         for k in range(d - 1, 0, -1):
             n = shape[k]
             vals = _eval_fibers(r2l_cores, r2l_ranks, k, left[k], right[k + 1])
-            with torch.profiler.record_function("core_fit"):
+            with span("core_fit"):
                 # rows = (i, b), cols = a: the right mask tiles over the n nodes
                 M = vals.permute(1, 2, 0).reshape(n * R, R)
                 row_mask = (arR < rr[k + 1])[None, :].expand(n, R).reshape(-1).to(dtype)
@@ -971,13 +974,14 @@ def make_fused_vi(
         # first core: direct evaluation against new right sets
         n = shape[0]
         vals = _eval_fibers(r2l_cores, r2l_ranks, 0, left[0], right[1])
-        col_mask = (arR < rr[1]).to(dtype)
-        C0 = vals[:1] * col_mask[None, None, :]  # row 0 only
-        new_cores[0] = torch.cat([C0, torch.zeros((R - 1, n, R), dtype=dtype, device=device)],
-                                 dim=0)
-        new_ranks[0] = one
-        new_ranks[d] = one
-        ranks_new = torch.stack(new_ranks)
+        with span("fused.rest"):
+            col_mask = (arR < rr[1]).to(dtype)
+            C0 = vals[:1] * col_mask[None, None, :]  # row 0 only
+            new_cores[0] = torch.cat(
+                [C0, torch.zeros((R - 1, n, R), dtype=dtype, device=device)], dim=0)
+            new_ranks[0] = one
+            new_ranks[d] = one
+            ranks_new = torch.stack(new_ranks)
         return (tuple(new_cores), ranks_new, left, right, rl, rr, rlf, rrf, rows_l, rows_r)
 
     def body(carry: FusedCarry, probe_now: bool = False) -> FusedCarry:
@@ -1003,13 +1007,14 @@ def make_fused_vi(
         (see ``make_fused_vi``); the probe's result is still gated by the
         device's own ``at_boundary``.
         """
-        emergency = carry.frozen & (
-            ~torch.isfinite(carry.residual) | (carry.residual > 10.0 * freeze_res))
-        frozen_latch = carry.frozen & ~emergency
-        frozen = frozen_latch | (carry.residual < freeze_res)
-        in_warmup = carry.it < carry.warm_until
-        st = (carry.cores, carry.ranks, carry.left, carry.right, carry.rl, carry.rr,
-              carry.rlf, carry.rrf, carry.rows_l, carry.rows_r)
+        with span("fused.rest"):
+            emergency = carry.frozen & (
+                ~torch.isfinite(carry.residual) | (carry.residual > 10.0 * freeze_res))
+            frozen_latch = carry.frozen & ~emergency
+            frozen = frozen_latch | (carry.residual < freeze_res)
+            in_warmup = carry.it < carry.warm_until
+            st = (carry.cores, carry.ranks, carry.left, carry.right, carry.rl, carry.rr,
+                  carry.rlf, carry.rrf, carry.rows_l, carry.rows_r)
         if target_mode == "frozen":
             # all fiber evaluations across the n_inner sweeps target the
             # backup of the SWEEP-ENTRY iterate; inner sweeps only refine
@@ -1020,76 +1025,76 @@ def make_fused_vi(
         else:
             st = one_sweep(st, carry.cores, carry.ranks, frozen, in_warmup, self_targeted=True)
         (new_cores, ranks_new, left, right, rl, rr, rlf, rrf, rows_l, rows_r) = st
-
-        v_new = TT(tuple(new_cores), ranks_new)
-        # the fitted fiber values are already scrubbed; the sample vector
-        # needs the same guarantee (an overflowing chain product would turn
-        # the residual NaN, and NaN compares False in every stopping test)
-        new_sample = _scrub(tt_gather_eval(v_new, sample_idx), vb)
-        scale = torch.clamp(torch.max(torch.abs(new_sample)), min=1e-12)
-        residual = torch.max(torch.abs(new_sample - carry.v_sample)) / scale
-        # windowed long-baseline residual (robust to per-iteration pivot noise)
-        at_boundary = torch.remainder(carry.it + 1, window) == 0
-        abs_disp = torch.max(torch.abs(new_sample - carry.sample_ref))
-        long_new = abs_disp / scale
-        # improvement = beating the BEST window so far (monotone baseline),
-        # tracked on the ABSOLUTE windowed displacement: a transiently
-        # blown-up iterate scores a deceptively small RELATIVE displacement.
-        # best_long (relative) is still tracked for the freeze logic.
-        improved = abs_disp < carry.best_absdisp * 0.98
-        best_long = torch.where(at_boundary, torch.minimum(carry.best_long, long_new),
-                                carry.best_long)
-        best_absdisp = torch.where(at_boundary, torch.minimum(carry.best_absdisp, abs_disp),
-                                   carry.best_absdisp)
-        wstall = torch.where(at_boundary,
-                             torch.where(improved, torch.zeros_like(carry.wstall),
-                                         carry.wstall + 1),
-                             carry.wstall)
-        # sticky freeze latch: engage after `freeze_after` stalled windows;
-        # release on divergence under the freeze. Both transitions reset
-        # wstall so the new regime gets fresh stopping patience. Entry at
-        # UNSATURATED ranks is unconditional on the residual level; at a
-        # SATURATED cap only a stall at LOW residual (< freeze_res) latches
-        # (large-truncation saturation is handled by rank-cap growth).
-        unsaturated = torch.max(ranks_new) < R
-        enter = (at_boundary & (~frozen_latch) & (wstall >= freeze_after)
-                 & (unsaturated | (long_new < freeze_res)))
-        leave = (at_boundary & frozen_latch & (long_new > 2.0 * carry.freeze_mark)
-                 & (long_new > freeze_res))
-        frozen_next = (frozen_latch | enter) & ~leave
-        freeze_mark = torch.where(enter, torch.clamp(long_new, min=1e-12), carry.freeze_mark)
-        wstall = torch.where(enter | leave, torch.zeros_like(wstall), wstall)
-        long_res = torch.where(at_boundary, long_new, carry.long_res)
-        sample_ref = torch.where(at_boundary, new_sample, carry.sample_ref)
-        if probe_rollouts > 0:
-            inf = torch.full_like(carry.best_cost, INF)
-            pc = torch.where(at_boundary, _probe_cost(v_new), inf) if probe_now else inf
-            is_best = pc < carry.best_cost
-            best_cost = torch.where(is_best, pc, carry.best_cost)
-            probe_cost_out = torch.where(at_boundary, pc, carry.probe_cost)
-        else:
-            # no probe: harvest the iterate with the smallest ABSOLUTE
-            # windowed displacement (the contraction-mapping error proxy
-            # ||v_k - v*|| <= ||T v_k - v_k|| / (1 - gamma)). In the churn
-            # regime the final iterate can sit on an oscillation far from
-            # the fixed point; the harvest brings every lineage close.
-            is_best = at_boundary & (abs_disp < carry.best_absdisp)
-            best_cost = carry.best_cost
-            probe_cost_out = carry.probe_cost
-        cores_best = tuple(torch.where(is_best, nc, cb)
-                           for nc, cb in zip(new_cores, carry.cores_best))
-        ranks_best = torch.where(is_best, ranks_new, carry.ranks_best)
-        return FusedCarry(
-            cores=tuple(new_cores), ranks=ranks_new, left=left, right=right,
-            rl=rl, rr=rr, rlf=rlf, rrf=rrf, rows_l=rows_l, rows_r=rows_r,
-            it=carry.it + 1, residual=residual,
-            long_res=long_res, wstall=wstall, v_sample=new_sample,
-            sample_ref=sample_ref, probe_cost=probe_cost_out,
-            best_cost=best_cost, cores_best=cores_best, ranks_best=ranks_best,
-            frozen=frozen_next, freeze_mark=freeze_mark,
-            best_long=best_long, best_absdisp=best_absdisp,
-            warm_until=carry.warm_until,
-        )
+        with span("fused.rest"):
+            v_new = TT(tuple(new_cores), ranks_new)
+            # the fitted fiber values are already scrubbed; the sample vector
+            # needs the same guarantee (an overflowing chain product would turn
+            # the residual NaN, and NaN compares False in every stopping test)
+            new_sample = _scrub(tt_gather_eval(v_new, sample_idx), vb)
+            scale = torch.clamp(torch.max(torch.abs(new_sample)), min=1e-12)
+            residual = torch.max(torch.abs(new_sample - carry.v_sample)) / scale
+            # windowed long-baseline residual (robust to per-iteration pivot noise)
+            at_boundary = torch.remainder(carry.it + 1, window) == 0
+            abs_disp = torch.max(torch.abs(new_sample - carry.sample_ref))
+            long_new = abs_disp / scale
+            # improvement = beating the BEST window so far (monotone baseline),
+            # tracked on the ABSOLUTE windowed displacement: a transiently
+            # blown-up iterate scores a deceptively small RELATIVE displacement.
+            # best_long (relative) is still tracked for the freeze logic.
+            improved = abs_disp < carry.best_absdisp * 0.98
+            best_long = torch.where(at_boundary, torch.minimum(carry.best_long, long_new),
+                                    carry.best_long)
+            best_absdisp = torch.where(at_boundary, torch.minimum(carry.best_absdisp, abs_disp),
+                                       carry.best_absdisp)
+            wstall = torch.where(at_boundary,
+                                 torch.where(improved, torch.zeros_like(carry.wstall),
+                                             carry.wstall + 1),
+                                 carry.wstall)
+            # sticky freeze latch: engage after `freeze_after` stalled windows;
+            # release on divergence under the freeze. Both transitions reset
+            # wstall so the new regime gets fresh stopping patience. Entry at
+            # UNSATURATED ranks is unconditional on the residual level; at a
+            # SATURATED cap only a stall at LOW residual (< freeze_res) latches
+            # (large-truncation saturation is handled by rank-cap growth).
+            unsaturated = torch.max(ranks_new) < R
+            enter = (at_boundary & (~frozen_latch) & (wstall >= freeze_after)
+                     & (unsaturated | (long_new < freeze_res)))
+            leave = (at_boundary & frozen_latch & (long_new > 2.0 * carry.freeze_mark)
+                     & (long_new > freeze_res))
+            frozen_next = (frozen_latch | enter) & ~leave
+            freeze_mark = torch.where(enter, torch.clamp(long_new, min=1e-12), carry.freeze_mark)
+            wstall = torch.where(enter | leave, torch.zeros_like(wstall), wstall)
+            long_res = torch.where(at_boundary, long_new, carry.long_res)
+            sample_ref = torch.where(at_boundary, new_sample, carry.sample_ref)
+            if probe_rollouts > 0:
+                inf = torch.full_like(carry.best_cost, INF)
+                pc = torch.where(at_boundary, _probe_cost(v_new), inf) if probe_now else inf
+                is_best = pc < carry.best_cost
+                best_cost = torch.where(is_best, pc, carry.best_cost)
+                probe_cost_out = torch.where(at_boundary, pc, carry.probe_cost)
+            else:
+                # no probe: harvest the iterate with the smallest ABSOLUTE
+                # windowed displacement (the contraction-mapping error proxy
+                # ||v_k - v*|| <= ||T v_k - v_k|| / (1 - gamma)). In the churn
+                # regime the final iterate can sit on an oscillation far from
+                # the fixed point; the harvest brings every lineage close.
+                is_best = at_boundary & (abs_disp < carry.best_absdisp)
+                best_cost = carry.best_cost
+                probe_cost_out = carry.probe_cost
+            cores_best = tuple(torch.where(is_best, nc, cb)
+                               for nc, cb in zip(new_cores, carry.cores_best))
+            ranks_best = torch.where(is_best, ranks_new, carry.ranks_best)
+            return FusedCarry(
+                cores=tuple(new_cores), ranks=ranks_new, left=left, right=right,
+                rl=rl, rr=rr, rlf=rlf, rrf=rrf, rows_l=rows_l, rows_r=rows_r,
+                it=carry.it + 1, residual=residual,
+                long_res=long_res, wstall=wstall, v_sample=new_sample,
+                sample_ref=sample_ref, probe_cost=probe_cost_out,
+                best_cost=best_cost, cores_best=cores_best, ranks_best=ranks_best,
+                frozen=frozen_next, freeze_mark=freeze_mark,
+                best_long=best_long, best_absdisp=best_absdisp,
+                warm_until=carry.warm_until,
+            )
 
     def init_fn(seed: int | None = 0, v0: TT | None = None) -> FusedCarry:
         """Fresh solver state. ``seed`` seeds the host draw of the initial
@@ -1170,9 +1175,11 @@ def make_fused_vi(
         of the new carry where the loop is still active, the old one where
         it is not. ``force`` (a 0-d bool tensor) makes it active whatever
         the condition: ``step_fn``'s iteration in the shared CUDA graph."""
-        active = force | (cond(carry) & (carry.it < limit))
+        with span("fused.rest"):
+            active = force | (cond(carry) & (carry.it < limit))
         new = body(carry, probe_now)
-        return _tree_map2(lambda a, b: torch.where(active, a, b), new, carry)
+        with span("fused.rest"):
+            return _tree_map2(lambda a, b: torch.where(active, a, b), new, carry)
 
     graphed = []    # the captured iteration, built at first use
 
@@ -1193,21 +1200,25 @@ def make_fused_vi(
         limit = carry.it + n_iters
         if cuda_graph:
             return _graphed_iteration()(carry, limit, n_iters, force=False)
-        it0 = _host_it(carry)
-        off = torch.zeros((), dtype=torch.bool, device=device)
-        for j in range(n_iters):
-            carry = masked_iteration(carry, limit, off, (it0 + j + 1) % window == 0)
-        return carry
+        with span("fused.step", device=False):
+            it0 = _host_it(carry)
+            off = torch.zeros((), dtype=torch.bool, device=device)
+            for j in range(n_iters):
+                with span("fused.iteration"):
+                    carry = masked_iteration(carry, limit, off, (it0 + j + 1) % window == 0)
+            return carry
 
     @torch.no_grad()
     def step_fn(carry: FusedCarry, n_iters: int = 1) -> FusedCarry:
         """Exactly n_iters iterations, whatever the stopping state."""
         if cuda_graph:
             return _graphed_iteration()(carry, carry.it, n_iters, force=True)
-        it0 = _host_it(carry)
-        for j in range(n_iters):
-            carry = body(carry, (it0 + j + 1) % window == 0)
-        return carry
+        with span("fused.step", device=False):
+            it0 = _host_it(carry)
+            for j in range(n_iters):
+                with span("fused.iteration"):
+                    carry = body(carry, (it0 + j + 1) % window == 0)
+            return carry
 
     @torch.no_grad()
     def solve_fn(carry: FusedCarry) -> FusedCarry:
@@ -1235,8 +1246,18 @@ class _GraphedIteration:
     ``force`` flag on the device makes the replayed iteration active
     whatever the loop condition (``step_fn``).
 
+    The iteration is captured twice, into one memory pool: ``graph``, which
+    runs while spans do not record, and ``traced``, the same iteration with
+    its spans as timing events (``utils.metrics.GraphSpans``): the root
+    ``fused.iteration`` under ``fused.step``, tiled by ``fiber_backup``
+    (K2), ``core_fit`` (K3) and ``fused.rest``, one event node at each of
+    their 4d + 2 boundaries. Those nodes cost about 4 us each, so only a
+    call made while spans record replays ``traced``; it harvests the
+    previous such call's last replay if it has completed, and never waits.
+
     ``_GraphedIteration.captures`` counts the captures made in this process
-    (a solver captures once, at its first graphed call)."""
+    (a solver captures once, at its first graphed call; the pair counts
+    once)."""
 
     captures = 0
 
@@ -1255,19 +1276,37 @@ class _GraphedIteration:
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            new = self.iteration(self.static, self.limit, self.force)
-            _tree_map2(lambda dst, src: dst.copy_(src), self.static, new)
+            self._iterate()
+        # every tensor the captures allocate dies inside them, so the two
+        # graphs share one pool: they are only ever replayed one at a time
+        self.traced = torch.cuda.CUDAGraph()
+        self.spans = GraphSpans()
+        with torch.cuda.graph(self.traced, pool=self.graph.pool()), self.spans.capturing():
+            self._iterate()
         _GraphedIteration.captures += 1
 
+    def _iterate(self):
+        with span("fused.iteration"):
+            new = self.iteration(self.static, self.limit, self.force)
+            with span("fused.rest"):
+                _tree_map2(lambda dst, src: dst.copy_(src), self.static, new)
+
     def __call__(self, carry, limit, n_iters, force: bool):
-        if self.graph is None:
-            self._capture(carry, limit)
-        _tree_map2(lambda dst, src: dst.copy_(src), self.static, carry)
-        self.limit.copy_(limit)
-        self.force.fill_(force)
-        for _ in range(n_iters):
-            self.graph.replay()
-        return _tree_map2(lambda a, _: a.clone(), self.static, self.static)
+        with span("fused.step", device=False):
+            if self.graph is None:
+                self._capture(carry, limit)
+            _tree_map2(lambda dst, src: dst.copy_(src), self.static, carry)
+            self.limit.copy_(limit)
+            self.force.fill_(force)
+            traced = recording()
+            if traced:
+                self.spans.harvest()
+            graph = self.traced if traced else self.graph
+            for _ in range(n_iters):
+                graph.replay()
+            if traced:
+                self.spans.replayed()
+            return _tree_map2(lambda a, _: a.clone(), self.static, self.static)
 
 
 @dataclasses.dataclass
@@ -1589,8 +1628,8 @@ def fused_tt_vi(
         vrng = np.random.default_rng(987654321)
         lbn, ubn = np.asarray(problem.lb), np.asarray(problem.ub)
         if probe_x0 is None:
-            mid, span = (lbn + ubn) / 2, (ubn - lbn) / 2
-            vx0 = mid + 0.5 * span * vrng.uniform(-1, 1, (4 * probe_rollouts, problem.dx))
+            mid, half = (lbn + ubn) / 2, (ubn - lbn) / 2
+            vx0 = mid + 0.5 * half * vrng.uniform(-1, 1, (4 * probe_rollouts, problem.dx))
         else:
             px = np.asarray(probe_x0)
             vx0 = px[vrng.integers(0, px.shape[0], 4 * probe_rollouts)]

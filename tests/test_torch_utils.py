@@ -34,7 +34,7 @@ from c3sc_tpu_torch.ops.cross import CrossState
 from c3sc_tpu_torch.solvers import make_fused_vi
 from c3sc_tpu_torch.utils import checkpoint as tck
 from c3sc_tpu_torch.utils import debug
-from c3sc_tpu_torch.utils.metrics import MetricsLogger, profile_trace
+from c3sc_tpu_torch.utils.metrics import MetricsLogger
 
 CPU = "cpu"
 
@@ -58,11 +58,6 @@ def test_metrics_lines_match_jax(tmp_path):
     assert len(lines["port"]) == 3 and lines["port"][1]["residual"] is None
     mem = MetricsLogger()
     assert mem.log("x", v=float("inf"))["v"] == float("inf")     # records keep the floats
-    with profile_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert os.path.exists(tmp_path / "trace" / "trace.json")
-    with profile_trace(None):
-        pass
 
 
 def _tt_pair(seed=3):
